@@ -1,0 +1,41 @@
+"""CMVM: multiplier-free constant matrix-vector multiply optimization (host solver)."""
+
+from typing import TypedDict
+
+try:  # typing.NotRequired is 3.11+; 3.10 ships it in typing_extensions
+    from typing import NotRequired
+except ImportError:  # pragma: no cover - version-dependent
+    from typing_extensions import NotRequired
+
+from .api import minimal_latency, solve
+from .core import cmvm, solve_single, to_solution
+from .csd import csd_decompose, int_arr_to_csd
+from .decompose import kernel_decompose, prim_mst_dc
+
+
+class solver_options_t(TypedDict):
+    """Per-solve options merged over HWConfig defaults."""
+
+    method0: NotRequired[str]
+    method1: NotRequired[str]
+    hard_dc: NotRequired[int]
+    decompose_dc: NotRequired[int]
+    adder_size: NotRequired[int]
+    carry_size: NotRequired[int]
+    search_all_decompose_dc: NotRequired[bool]
+    backend: NotRequired[str]
+    n_workers: NotRequired[int]
+
+
+__all__ = [
+    'solve',
+    'minimal_latency',
+    'cmvm',
+    'solve_single',
+    'to_solution',
+    'csd_decompose',
+    'int_arr_to_csd',
+    'kernel_decompose',
+    'prim_mst_dc',
+    'solver_options_t',
+]

@@ -1,0 +1,266 @@
+"""Lowering of traced ``FixedVariable`` graphs into the DAIS Op program.
+
+Three passes:
+
+1. :func:`collect_graph` — walk the ancestors of every requested output with
+   an explicit stack, order nodes by pipeline latency (stable, so insertion
+   order breaks ties), and drop nodes nothing consumes.
+2. :func:`_emit_program` — translate one node per operation through the
+   ``_ENCODERS`` registry. The free power-of-two scale and sign each node
+   carries in ``_factor`` is absorbed into the op's shift field or the
+   opcode's sign, so the emitted program only sees integer-aligned values.
+3. :func:`dead_statement_elimination` — backward reachability over the
+   emitted program followed by slot compaction.
+
+Counterpart of ``da4ml_tpu/trace/tracer.py`` for the operations the port's
+tracer builds (add/sub, constant add, constant, wrap, relu).
+"""
+
+from __future__ import annotations
+
+from collections.abc import Callable, Sequence
+from decimal import Decimal
+from math import log2
+
+import numpy as np
+
+from ..ir.comb import CombLogic
+from ..ir.types import Op, QInterval
+from .fixed_variable import FixedVariable, const_f
+from .fixed_variable_array import FixedVariableArray
+
+_LOW32 = (1 << 32) - 1
+
+
+def _rel_shift(f_ref, f_other) -> int:
+    """Power-of-two distance between two factors (how far operand two sits
+    from operand one)."""
+    return int(log2(abs(f_other / f_ref)))
+
+
+def collect_graph(inputs: Sequence[FixedVariable], outputs: Sequence[FixedVariable]):
+    """Gather every node reachable from ``outputs``, plus all ``inputs``.
+
+    Returns the nodes in execution order (ascending latency, ties by first
+    visit) together with a ``{node id: slot}`` map. Nodes that feed nothing
+    are removed, except for the inputs themselves.
+    """
+    seen: dict[int, FixedVariable] = {v.id: v for v in inputs}
+    input_ids = frozenset(seen)
+    for root in outputs:
+        stack = [root]
+        while stack:
+            node = stack[-1]
+            if node.id in seen:
+                stack.pop()
+                continue
+            todo = [p for p in node._from if p.id not in seen]
+            if todo:
+                # left-most parent must complete first: push it last
+                stack.extend(reversed(todo))
+            else:
+                seen[node.id] = node
+                stack.pop()
+
+    nodes = sorted(seen.values(), key=lambda nd: nd.latency)  # stable
+
+    fanout: dict[int, int] = dict.fromkeys(seen, 0)
+    for nd in nodes:
+        if nd.id in input_ids:
+            continue
+        for p in nd._from:
+            fanout[p.id] += 1
+    for out in outputs:
+        fanout[out.id] += 1
+
+    nodes = [nd for nd in nodes if fanout[nd.id] or nd.id in input_ids]
+    slot = {nd.id: i for i, nd in enumerate(nodes)}
+    return nodes, slot
+
+
+class _EmitCtx:
+    """Operand resolution for the node currently being emitted."""
+
+    __slots__ = ('slot', 'pos')
+
+    def __init__(self, slot: dict[int, int]):
+        self.slot = slot
+        self.pos = 0
+
+    def ref(self, operand: FixedVariable) -> int:
+        """Slot of an operand, verified to precede the consumer (causality)."""
+        k = self.slot[operand.id]
+        if k >= self.pos:
+            raise AssertionError(f'operand v{operand.id} lives at slot {k}, after its consumer at slot {self.pos}')
+        return k
+
+
+_Encoder = Callable[[FixedVariable, _EmitCtx], Op]
+_ENCODERS: dict[str, _Encoder] = {}
+
+
+def _encodes(opr: str):
+    def register(fn: _Encoder) -> _Encoder:
+        _ENCODERS[opr] = fn
+        return fn
+
+    return register
+
+
+@_encodes('vadd')
+def _vadd(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    a, b = v._from
+    # a + b·2^s with the sign of b's factor selecting add vs subtract
+    opcode = 1 if b._factor < 0 else 0
+    return Op(ctx.ref(a), ctx.ref(b), opcode, _rel_shift(a._factor, b._factor), v.unscaled.qint, v.latency, v.cost)
+
+
+@_encodes('cadd')
+def _cadd(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    (a,) = v._from
+    if v._data is None:
+        raise AssertionError('constant-add node lost its addend')
+    qint = v.unscaled.qint
+    bias = int(v._data / Decimal(qint.step))  # addend in lsb units
+    return Op(ctx.ref(a), -1, 4, bias, qint, v.latency, v.cost)
+
+
+@_encodes('wrap')
+def _wrap(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    (a,) = v._from
+    return Op(ctx.ref(a), -1, 3 if a._factor > 0 else -3, 0, v.unscaled.qint, v.latency, v.cost)
+
+
+@_encodes('relu')
+def _relu(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    (a,) = v._from
+    return Op(ctx.ref(a), -1, 2 if a._factor > 0 else -2, 0, v.unscaled.qint, v.latency, v.cost)
+
+
+@_encodes('const')
+def _const(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    lo, hi, _ = v.unscaled.qint
+    if lo != hi:
+        raise AssertionError(f'constant v{v.id} spans [{lo}, {hi}]')
+    step = 2.0 ** -const_f(lo)
+    return Op(-1, -1, 5, int(lo / step), QInterval(lo, lo, step), v.latency, v.cost)
+
+
+def _emit_program(inputs: Sequence[FixedVariable], outputs: Sequence[FixedVariable]):
+    nodes, slot = collect_graph(inputs, outputs)
+    input_slot = {v.id: i for i, v in enumerate(inputs)}
+
+    ops: list[Op] = []
+    ctx = _EmitCtx(slot)
+    for pos, nd in enumerate(nodes):
+        ctx.pos = pos
+        if nd.id in input_slot and nd.opr != 'const':
+            # external fetch: id0 is the input lane, not an op slot
+            ops.append(Op(input_slot[nd.id], -1, -1, 0, nd.unscaled.qint, nd.latency, 0.0))
+            continue
+        encode = _ENCODERS.get(nd.opr)
+        if encode is None:
+            raise NotImplementedError(f'no DAIS lowering for operation {nd.opr!r} in da4ml_tpu_torch yet')
+        ops.append(encode(nd, ctx))
+
+    out_slots = [slot[v.id] for v in outputs]
+    return ops, out_slots
+
+
+def _op_reads(op: Op):
+    """Slots an op reads. For external fetches (opcode -1) ``id0`` is an input
+    lane, which liveness nevertheless marks — input lane j and its fetch op
+    occupy the same slot j whenever inputs lead the program, which
+    ``collect_graph``'s ordering guarantees."""
+    if op.id0 >= 0:
+        yield op.id0
+    if op.id1 >= 0:
+        yield op.id1
+    if op.opcode in (6, -6):
+        yield op.data & _LOW32
+
+
+def _retarget(op: Op, remap: dict[int, int]) -> Op:
+    if op.opcode == -1:
+        return op
+    data = op.data
+    if op.opcode in (6, -6):
+        data = (((data >> 32) & _LOW32) << 32) | remap[data & _LOW32]
+    return op._replace(
+        id0=remap[op.id0] if op.id0 >= 0 else op.id0,
+        id1=remap[op.id1] if op.id1 >= 0 else op.id1,
+        data=data,
+    )
+
+
+def dead_statement_elimination(comb: CombLogic, keep_dead_inputs: bool = False) -> CombLogic:
+    """Drop ops no output transitively reads, compacting the slot space.
+
+    With ``keep_dead_inputs`` the external-fetch ops survive even when
+    unread, so the program's input arity is preserved.
+    """
+    n = len(comb.ops)
+    live = bytearray(n)
+    for r in comb.out_idxs:
+        if r >= 0:
+            live[r] = 1
+    # ops are in execution order, so one backward sweep reaches a fixpoint
+    for i in range(n - 1, -1, -1):
+        op = comb.ops[i]
+        if not live[i] and not (keep_dead_inputs and op.opcode == -1):
+            continue
+        for r in _op_reads(op):
+            live[r] = 1
+
+    remap: dict[int, int] = {}
+    kept: list[Op] = []
+    for i, op in enumerate(comb.ops):
+        if live[i]:
+            remap[i] = len(kept)
+            kept.append(op)
+
+    return CombLogic(
+        comb.shape,
+        comb.inp_shifts,
+        [remap[r] if r >= 0 else -1 for r in comb.out_idxs],
+        comb.out_shifts,
+        comb.out_negs,
+        [_retarget(op, remap) for op in kept],
+        comb.carry_size,
+        comb.adder_size,
+        comb.lookup_tables,
+    )
+
+
+def comb_trace(inputs, outputs, keep_dead_inputs: bool = False) -> CombLogic:
+    """Lower a traced computation (inputs → outputs) to a :class:`CombLogic`."""
+    ins = [inputs] if isinstance(inputs, FixedVariable) else list(np.ravel(_raw(inputs)))
+    outs = [outputs] if isinstance(outputs, FixedVariable) else list(np.ravel(_raw(outputs)))
+
+    for v in ins:
+        if v._factor <= 0:
+            raise AssertionError(f'trace input v{v.id} carries a non-positive factor {v._factor}')
+
+    if any(not isinstance(o, FixedVariable) for o in outs):
+        hwconf = ins[0].hwconf
+        outs = [o if isinstance(o, FixedVariable) else FixedVariable.from_const(o, hwconf, 1) for o in outs]
+
+    ops, out_slots = _emit_program(ins, outs)
+
+    factors = [o._factor for o in outs]
+    comb = CombLogic(
+        (len(ins), len(outs)),
+        [0] * len(ins),
+        out_slots,
+        [int(log2(abs(f))) for f in factors],
+        [f < 0 for f in factors],
+        ops,
+        outs[0].hwconf.carry_size,
+        outs[0].hwconf.adder_size,
+        None,
+    )
+    return dead_statement_elimination(comb, keep_dead_inputs)
+
+
+def _raw(x):
+    return x._vars if isinstance(x, FixedVariableArray) else x

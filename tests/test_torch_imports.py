@@ -1,0 +1,48 @@
+"""The port stands alone: it imports neither jax nor anything of da4ml_tpu."""
+
+import ast
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / 'da4ml_tpu_torch').rglob('*.py')) + [ROOT / 'chip_smoke.py']
+
+_RUN = """
+import sys
+import numpy as np
+from da4ml_tpu_torch.trace import FixedVariableArrayInput, HWConfig, comb_trace
+inp = FixedVariableArrayInput(4, hwconf=HWConfig(1, -1, -1))
+x = inp.quantize(np.ones(4), np.full(4, 3), np.full(4, 2))
+comb = comb_trace(inp, (x @ np.array([[1., -3.], [2., 5.], [-7., 1.], [4., 4.]])).relu(i=np.full(2, 5), f=np.full(2, 2)))
+data = np.random.default_rng(0).uniform(-8, 8, (32, 4))
+assert np.array_equal(comb.predict(data, device='cpu'), comb.predict(data, backend='numpy'))
+bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'da4ml_tpu' or m.startswith('da4ml_tpu.'))
+assert not bad, bad
+print('ok')
+"""
+
+
+def test_port_runs_without_jax_or_reference_package():
+    proc = subprocess.run([sys.executable, '-c', _RUN], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == 'ok'
+
+
+@pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    src = path.read_text()
+    for node in ast.walk(ast.parse(src)):
+        names = []
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            names = [node.module or '']
+        for name in names:
+            root = name.split('.')[0]
+            assert root not in ('jax', 'jaxlib', 'da4ml_tpu'), f'{path.name} imports {name}'
+    assert not re.search(r'\bimport jax\b|\bfrom jax\b', src)
+    assert not re.search(r'\bda4ml_tpu\.|\bfrom da4ml_tpu\b(?!_)|\bimport da4ml_tpu\b(?!_)', src)
