@@ -1,27 +1,43 @@
 #!/usr/bin/env python3
 """Smoke run of da4ml_tpu_torch on one NVIDIA GPU.
 
-Drives the port's main path end to end on the card and checks every kernel
-on it against its plain PyTorch version:
+Drives the port's main paths end to end on the card and checks every kernel
+on them against its plain PyTorch version:
 
-1. card: prints ``nvidia-smi``'s name and power limit; builds the DAIS
-   kernel (``da4ml_tpu_torch/csrc/dais_exec.cu``, nvcc, sm_90a) while the
-   host solves the flagship;
+1. card: prints ``nvidia-smi``'s name and power limit; nvcc builds the DAIS
+   kernel K1 (``csrc/dais_exec.cu``) and the greedy-CSE kernel K2
+   (``csrc/fused_cse.cu``), sm_90a, one nvcc each, all started together;
+   prints ptxas' report of both;
 2. host solve: traces the flagship MLP (16→32→32→5, 4-bit weights) through
-   the port's tracer and CMVM solver into one DAIS program;
-3. corpus: the kernel against its plain ``level`` version on the card, bit
-   for bit (``torch.equal``), on a seeded synth corpus that covers all eleven
-   opcode families and wide int64 programs, at batches of 33, 1000 and 131073
-   rows; one program's buffer lies just under 48 KB of shared memory, and
-   one int64 program is too wide for shared memory and takes the kernel's
-   global-memory scratch path;
-4. flagship: 2^20 numpy-seeded samples through ``DaisExecutor`` on the card
-   (the kernel's launch count is reset just before and read just after) and
-   through ``entry()``; the output must equal the plain version on the card
-   and the port's reference interpreter on the host, bit for bit; then times
-   the call's host stages, and the kernel and its plain version with CUDA
-   events;
-5. checks that neither jax nor da4ml_tpu was imported.
+   the port's tracer and host CMVM solver into one DAIS program (timed on
+   its own);
+3. K1 corpus: the DAIS kernel against its plain ``level`` version on the
+   card, bit for bit (``torch.equal``), on a seeded synth corpus that covers
+   all eleven opcode families and wide int64 programs, at batches of 33,
+   1000 and 131073 rows; one program's buffer lies just under 48 KB of shared
+   memory, and one int64 program takes the global-memory scratch path;
+4. device search (K2's main path): ``flagship_comb(backend='torch')`` traces
+   and solves the flagship with the device CMVM search on the card (K2's
+   launch count is reset just before and read just after; every rung call is
+   recorded); no lane may go to the host, and the program must be
+   byte-identical to the host-solved one;
+5. flagship execution (K1's main path): 2^20 numpy-seeded samples through
+   ``DaisExecutor`` on the device-solved program (K1's count reset just
+   before, read just after) and through ``entry()``; the output must equal
+   the plain version on the card and the reference interpreter on the host;
+   times the call's host stages, and K1 and its plain version;
+6. K2 corpus: every recorded flagship rung, and seeded random trit lanes
+   (i == j chains, methods 0-5, adder/carry sizes unset and set, a padding
+   lane, K = 16 classes at P = 512 and at P = 1024, whose digits do not fit
+   in shared memory), through K2 and through its plain
+   version on the card: all five outputs equal (``torch.equal``); times K2
+   and the plain version per rung with CUDA events, and counts K2's bound
+   from the iterations each rung recorded (the kernel line sums the
+   flagship's rungs);
+7. wider layers: the four six-bit layers of ``bench.py`` (16×64, 64×32,
+   32×32, 32×5) solved with ``solve_torch_many`` on the card, held to
+   ``Pipeline.kernel == kernel``;
+8. checks that neither jax nor da4ml_tpu was imported.
 
 Prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -43,16 +59,20 @@ import time
 import numpy as np
 
 #: published H100 SXM peaks (NVIDIA data sheet / Hopper white paper) used
-#: for the kernel's bound: HBM3 bandwidth, and int32 ALU issue = 132 SMs x
-#: 64 INT32 lanes x 1.98 GHz boost clock
+#: for the kernels' bounds: HBM3 bandwidth; int32 ALU issue = 132 SMs x
+#: 64 INT32 lanes x 1.98 GHz boost clock; fp32 issue = 132 SMs x 128 FP32
+#: lanes x 1.98 GHz (the data sheet's 67 TFLOP/s counts an FMA as two)
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
+FP32_OPS_PER_S = 132 * 128 * 1.98e9
 #: shared-memory bandwidth, 132 SMs x 128 B/clk x 1.98 GHz (reported beside
 #: the bound: the kernel reads two operands and writes one result per op)
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 
 FLAGSHIP_SAMPLES = 1 << 20
 CORPUS_BATCHES = (33, 1000, 131073)
+#: the wider JEDI-MLP layers of bench.py (section 2_jedi_mlp_layers), six-bit
+WIDE_LAYERS = ((16, 64), (64, 32), (32, 32), (32, 5))
 
 
 def card_line() -> str:
@@ -63,21 +83,31 @@ def card_line() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of ``reps`` warm calls, each timed with CUDA events."""
+def cuda_ms(fn, reps: int, fresh=None) -> float:
+    """Median milliseconds of ``reps`` calls, each timed with CUDA events,
+    after one untimed warm call. ``fresh()``, when given, makes each call's
+    arguments outside the timed span (for a function that updates them in
+    place)."""
     import torch
 
-    fn()
+    fn(*(fresh() if fresh else ()))
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
+        args = fresh() if fresh else ()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        fn(*args)
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def print_ptxas(log: str) -> None:
+    for line in log.splitlines():
+        if 'Function properties' in line or 'registers' in line or 'spill' in line:
+            print('  ptxas:', line.strip())
 
 
 def check_corpus(torch, DaisExecutor, cuda_backend, run_program) -> None:
@@ -125,52 +155,13 @@ def check_corpus(torch, DaisExecutor, cuda_backend, run_program) -> None:
     print(f'corpus: {n_checked} (program, batch) cases bit-exact; scratch launches {cuda_backend.scratch_launches}')
 
 
-def main() -> int:
-    import torch
-
-    if not torch.cuda.is_available():
-        print('chip_smoke: no CUDA device', file=sys.stderr)
-        return 2
-    from da4ml_tpu_torch.entry import entry, flagship_comb
-    from da4ml_tpu_torch.ir.dais_binary import decode
+def run_dais_flagship(torch, prog, card: str) -> dict:
+    """K1's main path: the flagship program on 2^20 samples, checked and timed."""
+    from da4ml_tpu_torch.entry import entry
     from da4ml_tpu_torch.runtime import cuda_backend
     from da4ml_tpu_torch.runtime.reference import run_program
     from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
 
-    card = card_line()
-    print(card, flush=True)
-
-    # phase 1+2: nvcc builds the kernel while the host solves the flagship
-    build_s: list[float] = []
-    build_err: list[BaseException] = []
-
-    def _build():
-        t0 = time.perf_counter()
-        try:
-            cuda_backend.build()
-        except BaseException as e:  # re-raised on the main thread below
-            build_err.append(e)
-        build_s.append(time.perf_counter() - t0)
-
-    build_thread = threading.Thread(target=_build)
-    build_thread.start()
-    t0 = time.perf_counter()
-    comb = flagship_comb(n_workers=os.cpu_count() or 1)
-    solve_s = time.perf_counter() - t0
-    build_thread.join()
-    if build_err:
-        raise build_err[0]
-    print(f'build: {build_s[0]:.3f} s (nvcc, sm_90a)')
-    for line in cuda_backend.build_log.splitlines():
-        if 'Function properties' in line or 'registers' in line or 'spill' in line:
-            print('  ptxas:', line.strip())
-    prog = decode(comb.to_binary())
-    print(f'solve: {solve_s:.3f} s host CMVM ({os.cpu_count()} workers); program {prog.n_ops} ops, cost {comb.cost}')
-
-    # phase 3: corpus, kernel vs plain version on the card
-    check_corpus(torch, DaisExecutor, cuda_backend, run_program)
-
-    # phase 4: the main path at 2^20 samples
     data = np.random.default_rng(20260729).uniform(-8, 8, (FLAGSHIP_SAMPLES, prog.n_in))
     ex = DaisExecutor(prog)
     assert ex.device.type == 'cuda' and ex.dtype == torch.int32
@@ -231,26 +222,282 @@ def main() -> int:
           f'(int ALU {ops_ms:.4f} ms for {ex.kernel.int_ops_per_sample} operations per sample, HBM {bytes_ms:.4f} ms; '
           f'shared-memory traffic {smem_ms:.4f} ms)')  # fmt: skip
     print(f'[{card}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    return {
+        'name': 'dais_exec',
+        'route': 'cuda',
+        'source': 'da4ml_tpu_torch/csrc/dais_exec.cu',
+        'replaces': 'da4ml_tpu/runtime/pallas_backend.py:480',
+        'launches': launches,
+        'max_abs_err': max_abs_err,
+        'ms': ms,
+        'plain_ms': plain_ms,
+        'bound_ms': bound_ms,
+        'bound_by': bound_by,
+        'library_ms': None,
+    }
 
-    # phase 5: the port imported nothing of JAX
+
+# ---------------------------------------------------------------------------
+# K2: rungs of the device search
+# ---------------------------------------------------------------------------
+
+
+class RungRecorder:
+    """Records every ``torch_search.cse_rung`` call of a solve: (inputs,
+    spec), and the host seconds the calls take (upload, the torch-op cache
+    build and K2, to a synchronize the caller's fetch would wait for anyway)."""
+
+    def __init__(self, ts):
+        self.ts, self.real, self.calls, self.seconds = ts, ts.cse_rung, [], 0.0
+
+    def __enter__(self):
+        self.ts.cse_rung = self
+        return self
+
+    def __exit__(self, *exc):
+        self.ts.cse_rung = self.real
+
+    def __call__(self, E0, qmeta0, lat0, cur0, method, spec, device=None):
+        import torch
+
+        self.calls.append(((E0, qmeta0, lat0, cur0, method), spec))
+        t0 = time.perf_counter()
+        out = self.real(E0, qmeta0, lat0, cur0, method, spec, device)
+        torch.cuda.synchronize()
+        self.seconds += time.perf_counter() - t0
+        return out
+
+
+def rung_work(ts, inputs, rec, cur, spec) -> tuple[int, int, int]:
+    """(bytes, int32 operations, fp32 operations) one rung needs for this
+    run's data.
+
+    Bytes: every input read once and every output written once. Operations,
+    per recorded iteration, over its d distinct dirty rows {i, j, cur} (two
+    for an i == j chain), the dirty rows' digits counted by replaying the
+    iteration's record. int32, the exact recount: a nonzero digit at bit b
+    meets each of P slots once per shift that exists for it in each operand
+    order (B - b row first, b + 1 slot first), and the shift-0 product is the
+    same in both orders: B checks. fp32: the argmax over the 2B·P cache
+    heads; the scores of each dirty row's 2·(2B - 1)·P refreshed candidates
+    (at shift 0 only one operand order is a candidate); one compare per
+    refreshed column in the merge of each of the 2B·P cache rows (d·2B·P);
+    one pass over each of the d·2B rebuilt rows of P scores.
+    """
+    import torch
+
+    E0, _, _, cur0, _ = (np.asarray(x) for x in inputs)
+    N, P, O, B = E0.shape
+    TB, K = 2 * B, spec.topk
+    n_bytes = 2 * (N * P * O * B + 16 * N * P) + 8 * N * TB * P * K + 8 * N + 16 * N * spec.n_iters
+    int_ops = fp_ops = 0
+    lane = torch.zeros(1, dtype=torch.int64)
+    for n in range(N):
+        E = torch.from_numpy(E0[n : n + 1].copy())
+        for t in range(int(cur[n]) - int(cur0[n])):
+            id0, id1, sub, shift = (int(v) for v in rec[n, t])
+            i, j, s = (id0, id1, shift) if shift >= 0 else (id1, id0, -shift)
+            c = int(cur0[n]) + t
+            args = (torch.tensor([v]) for v in (sub, s, i, j))
+            E[0, c] = ts._dev_substitute(E, lane, *args, B)[0]  # the search's own substitution
+            dirty = sorted({i, j, c})
+            int_ops += B * P * int((E[0, dirty] != 0).sum())
+            fp_ops += TB * P + len(dirty) * (2 * (TB - 1) * P + TB * P + TB * P)
+    return n_bytes, int_ops, fp_ops
+
+
+def random_rung(rng, P: int, O: int, B: int, n_rows: int, N: int = 7):
+    """Seeded random trit lanes of one rung class: methods 0-5 and a padding
+    lane (cur0 = P); lane 0's first row is a run of equal digits, which the
+    search matches as an i == j chain."""
+    E = np.zeros((N, P, O, B), np.int8)
+    E[:, :n_rows] = rng.choice([-1, 0, 0, 1], size=(N, n_rows, O, B)).astype(np.int8)
+    E[0, 0] = 1
+    q = np.zeros((N, P, 3), np.float32)
+    q[:, :, 2] = 1.0
+    st = 2.0 ** -rng.integers(0, 3, (N, n_rows))
+    q[:, :n_rows, 0] = -rng.integers(0, 64, (N, n_rows)) * st
+    q[:, :n_rows, 1] = rng.integers(1, 64, (N, n_rows)) * st
+    q[:, :n_rows, 2] = st
+    lat = np.zeros((N, P), np.float32)
+    lat[:, :n_rows] = rng.integers(0, 3, (N, n_rows))
+    cur = np.full(N, n_rows, np.int32)
+    cur[-1] = P
+    return E, q, lat, cur, (np.arange(N) % 6).astype(np.int32)
+
+
+def check_rung(torch, ts, fused_cse, inputs, spec, name: str) -> dict:
+    """One rung through K2 and through its plain version on the card: all
+    five outputs must be equal. Also K2's and the plain version's
+    milliseconds (CUDA events) and the rung's work for its bound."""
+    dev_in = ts.rung_inputs(*inputs, spec, device='cuda')
+
+    def fresh():  # both update the state in place
+        return [t.clone() for t in dev_in]
+
+    got = fused_cse.launch(*fresh(), spec)
+    want = ts.greedy_plain(*fresh(), spec)
+    torch.cuda.synchronize()
+    for field, g, w in zip(('E', 'qmeta', 'lat', 'records', 'cur'), got, want):
+        if not torch.equal(g, w):
+            bad = (g != w).nonzero()[:5].tolist()
+            raise AssertionError(f'K2 rung {name}: {field} differs from the plain version at {bad}')
+    rec, cur = got[3].cpu().numpy(), got[4].cpu().numpy()
+    done = cur - dev_in[5].cpu().numpy()  # iterations per lane
+    out = {
+        'name': name, 'N': len(cur), 'P': spec.P, 'O': spec.O, 'B': spec.B, 'K': spec.topk, 'iters': int(done.sum()),
+        'chains': sum(int((rec[n, :k, 0] == rec[n, :k, 1]).sum()) for n, k in enumerate(done)),
+        'max_abs_err': max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want) if g.numel()),
+    }  # fmt: skip
+    out['ms'] = cuda_ms(lambda *a: fused_cse.launch(*a, spec), reps=5, fresh=fresh)
+    out['plain_ms'] = cuda_ms(lambda *a: ts.greedy_plain(*a, spec), reps=3, fresh=fresh)
+    n_bytes, int_ops, fp_ops = rung_work(ts, inputs, rec, cur, spec)
+    out['bytes_ms'] = n_bytes / HBM_BYTES_PER_S * 1e3
+    out['int_ms'] = int_ops / INT32_OPS_PER_S * 1e3
+    out['fp_ms'] = fp_ops / FP32_OPS_PER_S * 1e3
+    # the int32 and fp32 pipes issue side by side: the least time is the larger
+    out['ops_ms'] = max(out['int_ms'], out['fp_ms'])
+    return out
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print('chip_smoke: no CUDA device', file=sys.stderr)
+        return 2
+    from da4ml_tpu_torch.cmvm import fused_cse, solve_torch_many
+    from da4ml_tpu_torch.cmvm import torch_search as ts
+    from da4ml_tpu_torch.entry import flagship_comb
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.reference import run_program
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+
+    card = card_line()
+    print(card, flush=True)
+
+    # phase 1: nvcc builds both kernels, one process each, all started
+    # together; phase 2: then the host solves the flagship (timed alone: the
+    # builds would share its cores)
+    builds: dict[str, float] = {}
+    build_err: list[BaseException] = []
+
+    def _build(name, module):
+        t0 = time.perf_counter()
+        try:
+            module.build()
+        except BaseException as e:  # re-raised on the main thread below
+            build_err.append(e)
+        builds[name] = time.perf_counter() - t0
+
+    threads = [threading.Thread(target=_build, args=a) for a in (('dais_exec', cuda_backend), ('fused_cse', fused_cse))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if build_err:
+        raise build_err[0]
+    for name, log in (('dais_exec', cuda_backend.build_log), ('fused_cse', fused_cse.build_log)):
+        print(f'build {name}: {builds[name]:.3f} s (nvcc, sm_90a)')
+        print_ptxas(log)
+    t0 = time.perf_counter()
+    comb = flagship_comb(n_workers=os.cpu_count() or 1)
+    solve_s = time.perf_counter() - t0
+    print(f'solve: {solve_s:.3f} s host CMVM ({os.cpu_count()} workers); cost {comb.cost}', flush=True)
+
+    # phase 3: K1 corpus, kernel vs plain version on the card
+    check_corpus(torch, DaisExecutor, cuda_backend, run_program)
+
+    # phase 4: K2's main path — the flagship through the device search
+    pmax0 = ts.search_stats['pmax_host_fallbacks']
+    with RungRecorder(ts) as flag_rungs:
+        fused_cse.reset_counts()
+        t0 = time.perf_counter()
+        comb_dev = flagship_comb(backend='torch')
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        k2_launches = fused_cse.launches
+    pmax_routes = ts.search_stats['pmax_host_fallbacks'] - pmax0
+    classes = sorted({(s.P, s.O, s.B, s.topk, s.R_in) for _, s in flag_rungs.calls})
+    print(f'device search: flagship solved in {dev_s:.3f} s on the card (host solve {solve_s:.3f} s), of which '
+          f'{flag_rungs.seconds:.3f} s in the rung calls (upload, cache build, K2) and the rest in tracing, '
+          f'decomposition and emission on the host; {len(flag_rungs.calls)} rung calls in {len(classes)} classes '
+          f'(P, O, B, K, R_in) {classes}; K2 launched {k2_launches} times; PMAX host routes {pmax_routes}',
+          flush=True)  # fmt: skip
+    assert k2_launches > 0, 'the device search never launched K2'
+    assert pmax_routes == 0, f'{pmax_routes} flagship lanes went to the host solver'
+    assert np.array_equal(comb_dev.to_binary(), comb.to_binary()), 'device-solved flagship differs from the host-solved'
+    prog = decode(comb_dev.to_binary())
+    print(f'device search: program byte-identical to the host solve ({prog.n_ops} ops, cost {comb_dev.cost})')
+
+    # phase 5: K1's main path at 2^20 samples, on the device-solved program
+    dais = run_dais_flagship(torch, prog, card)
+
+    # phase 6: K2 corpus — the flagship's rungs (timed) and random trit lanes
+    rows = [check_rung(torch, ts, fused_cse, inp, spec, f'flagship {k}')
+            for k, (inp, spec) in enumerate(flag_rungs.calls)]  # fmt: skip
+    rng = np.random.default_rng(20261016)
+    # the last class's digits (1024 x 64 x 4 bytes) exceed the 227 KB of shared
+    # memory a block can have, so K2 keeps them in global memory
+    synth = [(64, 8, 4, -1, -1, 16), (128, 32, 6, 3, 8, 32), (256, 32, 6, -1, -1, 32), (256, 8, 2, 2, -1, 128),
+             (512, 8, 4, -1, -1, 64), (1024, 64, 4, -1, -1, 16)]  # fmt: skip
+    for P, O, B, adder, carry, n_rows in synth:
+        spec = ts._KernelSpec(P, O, B, adder, carry, R_in=n_rows, topk=8 if P <= 256 else 16)
+        rows.append(check_rung(torch, ts, fused_cse, random_rung(rng, P, O, B, n_rows), spec,
+                               f'random P{P} O{O} B{B} a{adder} c{carry}'))  # fmt: skip
+    for r in rows:
+        print(f"K2 rung {r['name']}: N {r['N']} P {r['P']} O {r['O']} B {r['B']} K {r['K']}, {r['iters']} iterations, "
+              f"{r['chains']} i == j chains: equal, K2 {r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms")  # fmt: skip
+    assert any(r['K'] == 16 for r in rows) and any(r['chains'] for r in rows)
+    timed = [r for r in rows if r['name'].startswith('flagship')]
+    k2_ms, k2_plain = sum(r['ms'] for r in timed), sum(r['plain_ms'] for r in timed)
+    k2_bound = sum(max(r['bytes_ms'], r['ops_ms']) for r in timed)
+    ops_ms, bytes_ms = sum(r['ops_ms'] for r in timed), sum(r['bytes_ms'] for r in timed)
+    int_ms, fp_ms = sum(r['int_ms'] for r in timed), sum(r['fp_ms'] for r in timed)
+    print(f'[{card}] fused_cse: {k2_ms:.4f} ms over the flagship\'s {len(timed)} rungs '
+          f'({sum(r["iters"] for r in timed)} iterations); plain version {k2_plain:.2f} ms; '
+          f'bound {k2_bound:.6f} ms by {"operations" if ops_ms >= bytes_ms else "bytes"} '
+          f'(operations {ops_ms:.6f} ms: int32 recount {int_ms:.6f} ms, fp32 scores, merge and argmax {fp_ms:.6f} ms; '
+          f'HBM {bytes_ms:.6f} ms); K2 {k2_ms / k2_bound:.0f}x the bound')  # fmt: skip
+
+    # phase 7: the wider six-bit layers of bench.py through the device search
+    wrng = np.random.default_rng(20260729)
+    kernels = []
+    for ni, no in WIDE_LAYERS:
+        mag = wrng.integers(0, 2**6, (ni, no)).astype(np.float64)
+        kernels.append(mag * wrng.choice([-1.0, 1.0], (ni, no)))
+    with RungRecorder(ts) as wide_rungs:
+        t0 = time.perf_counter()
+        sols = solve_torch_many(kernels)
+        torch.cuda.synchronize()
+        wide_s = time.perf_counter() - t0
+    for k, s in zip(kernels, sols):
+        assert np.array_equal(np.asarray(s.kernel, np.float64), k), f'wide layer {k.shape} is not exact'
+    print(f'wider layers {WIDE_LAYERS}: {wide_s:.3f} s on the card ({wide_rungs.seconds:.3f} s in rung calls), '
+          f'exact; cost {[float(s.cost) for s in sols]} (total {sum(float(s.cost) for s in sols)}), '
+          f'{len(wide_rungs.calls)} rungs, largest P {max(s.P for _, s in wide_rungs.calls)}')  # fmt: skip
+
+    # phase 8: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
-    kernels = [
+    kernels_line = [
+        dais,
         {
-            'name': 'dais_exec',
+            'name': 'fused_cse',
             'route': 'cuda',
-            'source': 'da4ml_tpu_torch/csrc/dais_exec.cu',
-            'replaces': 'da4ml_tpu/runtime/pallas_backend.py:480',
-            'launches': launches,
-            'max_abs_err': max_abs_err,
-            'ms': ms,
-            'plain_ms': plain_ms,
-            'bound_ms': bound_ms,
-            'bound_by': bound_by,
+            'source': 'da4ml_tpu_torch/csrc/fused_cse.cu',
+            'replaces': 'da4ml_tpu/cmvm/fused_cse.py:108',
+            'launches': k2_launches,
+            'max_abs_err': max(r['max_abs_err'] for r in rows),
+            'ms': k2_ms,
+            'plain_ms': k2_plain,
+            'bound_ms': k2_bound,
+            'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
             'library_ms': None,
-        }
+        },
     ]
-    print(json.dumps({'kernels': kernels}))
+    print(json.dumps({'kernels': kernels_line}))
     print(card)
     device = {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0), 'count': torch.cuda.device_count()}
     print(json.dumps({'ok': True, 'device': device}))

@@ -1,4 +1,5 @@
-"""CMVM: multiplier-free constant matrix-vector multiply optimization (host solver)."""
+"""CMVM: multiplier-free constant matrix-vector multiply optimization
+(host solver, and the device search ``solve_torch``)."""
 
 from typing import TypedDict
 
@@ -13,6 +14,16 @@ from .csd import csd_decompose, int_arr_to_csd
 from .decompose import kernel_decompose, prim_mst_dc
 
 
+def __getattr__(name: str):
+    # the device search imports torch; the host solver's spawned workers
+    # import this package and should not pay for that
+    if name in ('solve_torch', 'solve_torch_many'):
+        from . import torch_search
+
+        return getattr(torch_search, name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
+
 class solver_options_t(TypedDict):
     """Per-solve options merged over HWConfig defaults."""
 
@@ -25,10 +36,15 @@ class solver_options_t(TypedDict):
     search_all_decompose_dc: NotRequired[bool]
     backend: NotRequired[str]
     n_workers: NotRequired[int]
+    method0_candidates: NotRequired[list[str]]
+    n_restarts: NotRequired[int]
+    device: NotRequired[object]
 
 
 __all__ = [
     'solve',
+    'solve_torch',
+    'solve_torch_many',
     'minimal_latency',
     'cmvm',
     'solve_single',

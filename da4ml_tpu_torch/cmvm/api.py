@@ -4,10 +4,14 @@
 n_in))] and keeps the cheapest result; ``n_workers`` spreads that sweep over
 host worker processes.
 
-Counterpart of the host loop of ``da4ml_tpu/cmvm/api.py``
-(``_solve_dispatch_impl``). The port solves on the host only: ``'auto'``
-resolves to ``'cpu'``; the native solver and the device search are not
-ported yet, so any other backend raises.
+Counterpart of ``da4ml_tpu/cmvm/api.py`` (``_solve_dispatch_impl``):
+
+- ``backend='cpu'`` (and ``'auto'``, which stays the host solver, as in the
+  reference) runs the host loop below;
+- ``backend='torch'`` runs the device search ``torch_search.solve_torch``
+  on ``device`` (the card when None; ``'cpu'`` runs its plain torch loop).
+
+The native solver (``'cpp'``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -25,7 +29,7 @@ from .core import solve_single, to_solution
 from .decompose import kernel_decompose
 from .state import create_state
 
-BACKENDS = ('cpu', 'auto')
+BACKENDS = ('cpu', 'auto', 'torch')
 
 
 def minimal_latency(
@@ -148,10 +152,19 @@ def solve(
     search_all_decompose_dc: bool = True,
     backend: str = 'cpu',
     n_workers: int = 0,
+    method0_candidates: list[str] | None = None,
+    n_restarts: int = 1,
+    quality=None,
+    device=None,
 ) -> Pipeline:
     """Full CMVM solve with an optional sweep over all decompose depths.
 
-    ``n_workers > 1`` solves the sweep's candidates in that many host worker
+    ``backend='torch'`` runs the device search on ``device`` (the card when
+    None); ``method0_candidates``, ``n_restarts`` and ``quality`` are its
+    options (``solve_torch``). The host backends take ``method0_candidates``
+    as a sequential sweep (the cheapest solution wins) and run no restarts.
+
+    ``n_workers > 1`` solves the host sweep's candidates in that many worker
     processes (spawned: the caller may hold threads, and fork is unsafe
     then); the result is the same as the sequential sweep's.
     """
@@ -159,8 +172,37 @@ def solve(
     if kernel.ndim != 2 or kernel.shape[0] == 0 or kernel.shape[1] == 0:
         raise ValueError(f'kernel must be a non-empty 2D matrix, got shape {kernel.shape}')
     if backend not in BACKENDS:
-        raise ValueError(f'backend {backend!r} is not ported to da4ml_tpu_torch (host solver only: {BACKENDS})')
+        raise ValueError(f'backend {backend!r} is not ported to da4ml_tpu_torch (ported: {BACKENDS})')
     qintervals, latencies = _default_qint_lat(kernel, qintervals, latencies)
+
+    if backend == 'torch':
+        from .torch_search import solve_torch
+
+        return solve_torch(
+            kernel,
+            method0=method0,
+            method1=method1,
+            hard_dc=hard_dc,
+            decompose_dc=decompose_dc,
+            qintervals=qintervals,
+            latencies=latencies,
+            adder_size=adder_size,
+            carry_size=carry_size,
+            search_all_decompose_dc=search_all_decompose_dc,
+            method0_candidates=method0_candidates,
+            n_restarts=n_restarts,
+            quality=quality,
+            device=device,
+        )
+    if quality not in (None, 'fast'):
+        raise NotImplementedError(f'quality={quality!r}: the beam search is not ported (only None / "fast")')
+    if method0_candidates:
+        sols = [
+            solve(kernel, mc, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
+                  search_all_decompose_dc, backend, n_workers)
+            for mc in dict.fromkeys(method0_candidates)
+        ]  # fmt: skip
+        return min(sols, key=lambda s: s.cost)
 
     if not search_all_decompose_dc:
         return _solve(kernel, method0, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size)

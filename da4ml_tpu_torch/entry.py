@@ -1,9 +1,11 @@
 """The flagship forward step on the card.
 
 Counterpart of ``__graft_entry__.py``'s ``_flagship_comb`` and ``entry``: a
-JEDI-linear-style quantized MLP is traced, its matrices are solved on the host
-into one DAIS program, and the program runs through the hand-written CUDA
-kernel.
+JEDI-linear-style quantized MLP is traced, its matrices are CMVM-solved into
+one DAIS program — on the host (``backend='cpu'``) or by the device search
+(``backend='torch'``, whose greedy loop is the CUDA kernel
+``csrc/fused_cse.cu``) — and the program runs through the hand-written CUDA
+kernel ``csrc/dais_exec.cu``.
 """
 
 from __future__ import annotations
@@ -15,15 +17,16 @@ from .ir.comb import CombLogic
 _FLAGSHIP: dict[tuple, CombLogic] = {}
 
 
-def flagship_comb(n_in=16, hidden=(32, 32), n_out=5, backend='cpu', n_workers=0) -> CombLogic:
+def flagship_comb(n_in=16, hidden=(32, 32), n_out=5, backend='cpu', n_workers=0, device=None) -> CombLogic:
     """Trace the JEDI-linear-style MLP to a CombLogic: 4-bit integer weights,
     ``relu(i=5, f=2)`` between layers, inputs quantized to (1, 3, 2).
 
-    The trace is deterministic, so it is kept per shape; ``n_workers`` host
-    processes share each layer's decompose-depth sweep without changing the
-    result.
+    The trace is deterministic, so it is kept per (shape, backend, device);
+    ``n_workers`` host processes share each layer's decompose-depth sweep of
+    the host solver without changing the result; ``device`` is where the
+    ``'torch'`` backend searches (the card when None).
     """
-    key = (n_in, tuple(hidden), n_out, backend)
+    key = (n_in, tuple(hidden), n_out, backend, None if device is None else str(device))
     if key in _FLAGSHIP:
         return _FLAGSHIP[key]
     from .trace import FixedVariableArrayInput, HWConfig, comb_trace
@@ -32,6 +35,8 @@ def flagship_comb(n_in=16, hidden=(32, 32), n_out=5, backend='cpu', n_workers=0)
     opts = {'backend': backend}
     if n_workers:
         opts['n_workers'] = n_workers
+    if device is not None:
+        opts['device'] = device
     inp = FixedVariableArrayInput(n_in, hwconf=HWConfig(1, -1, -1), solver_options=opts)
     x = inp.quantize(np.ones(n_in), np.full(n_in, 3), np.full(n_in, 2))
     dims = [n_in, *hidden, n_out]

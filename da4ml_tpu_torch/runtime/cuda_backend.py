@@ -123,7 +123,7 @@ def reset_counts() -> None:
 # build and load
 # ---------------------------------------------------------------------------
 
-_lib = None
+_libs: dict = {}
 _lib_lock = threading.Lock()
 #: nvcc's diagnostics of the last build (ptxas register / spill report)
 build_log = ''
@@ -134,50 +134,66 @@ def _nvcc() -> str:
     for c in cands:
         if c and os.path.exists(c):
             return c
-    raise RuntimeError('nvcc not found (set CUDA_HOME): the DAIS CUDA kernel is built from source at first use')
+    raise RuntimeError('nvcc not found (set CUDA_HOME): the CUDA kernels are built from source at first use')
 
 
-def library_path() -> Path:
-    """Where the build of the current source and flags lives (content-addressed)."""
-    digest = hashlib.sha256(SOURCE.read_bytes() + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f'libdais_exec_{digest}.so'
+def compile_source(source: Path, flags: tuple[str, ...]) -> tuple[Path, str]:
+    """Compile one kernel source with nvcc into a shared library under
+    ``BUILD_DIR``, content-addressed by source and flags: ``(path, nvcc's
+    diagnostics)``, the diagnostics empty when that build already exists.
+    Raises with nvcc's output on failure."""
+    digest = hashlib.sha256(source.read_bytes() + ' '.join(flags).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f'lib{source.stem}_{digest}.so'
+    if out.exists():
+        return out, ''
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f'{out.stem}.{os.getpid()}.tmp.so')
+    proc = subprocess.run([_nvcc(), *flags, '-o', str(tmp), str(source)], capture_output=True, text=True)
+    log = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f'nvcc failed on {source.name} with exit code {proc.returncode}:\n{log}')
+    os.replace(tmp, out)
+    return out, log
 
 
 def build() -> Path:
     """Compile ``csrc/dais_exec.cu`` for sm_90a (no-op when this source and
     these flags are already built); raises with nvcc's output on failure."""
     global build_log
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f'{out.stem}.{os.getpid()}.tmp.so')
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(SOURCE)], capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f'nvcc failed with exit code {proc.returncode}:\n{build_log}')
-    os.replace(tmp, out)
+    out, log = compile_source(SOURCE, NVCC_FLAGS)
+    if log:
+        build_log = log
     return out
+
+
+def load_library(build_fn, declare) -> ctypes.CDLL:
+    """The library ``build_fn()`` builds, loaded once per process with its C
+    signatures declared by ``declare(lib)``."""
+    with _lib_lock:
+        lib = _libs.get(build_fn)
+        if lib is None:
+            lib = ctypes.CDLL(str(build_fn()))
+            declare(lib)
+            _libs[build_fn] = lib
+        return lib
+
+
+def _declare(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for name in ('dais_exec_i32', 'dais_exec_i64'):
+        fn = getattr(lib, name)
+        fn.restype = ci
+        fn.argtypes = [ci, vp, ci, vp, ci, vp, ci, vp, vp, ctypes.c_longlong, ci, ci, vp, vp]
+    lib.dais_device_smem.restype = ci
+    lib.dais_device_smem.argtypes = [ci] + [ctypes.POINTER(ci)] * 3
+    lib.dais_error_string.restype = ctypes.c_char_p
+    lib.dais_error_string.argtypes = [ci]
 
 
 def load():
     """The built kernel library, with its C signatures declared."""
-    global _lib
-    with _lib_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, ci = ctypes.c_void_p, ctypes.c_int
-            for name in ('dais_exec_i32', 'dais_exec_i64'):
-                fn = getattr(lib, name)
-                fn.restype = ci
-                fn.argtypes = [ci, vp, ci, vp, ci, vp, ci, vp, vp, ctypes.c_longlong, ci, ci, vp, vp]
-            lib.dais_device_smem.restype = ci
-            lib.dais_device_smem.argtypes = [ci] + [ctypes.POINTER(ci)] * 3
-            lib.dais_error_string.restype = ctypes.c_char_p
-            lib.dais_error_string.argtypes = [ci]
-            _lib = lib
-        return _lib
+    return load_library(build, _declare)
 
 
 def _check(lib, rc: int, what: str) -> None:

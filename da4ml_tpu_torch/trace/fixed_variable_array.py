@@ -1,11 +1,13 @@
 """Symbolic arrays of FixedVariable.
 
 ``FixedVariableArray`` wraps an object-dtype ndarray of FixedVariable.
-Variable × constant-matrix products route through the host CMVM solver; the
-elementwise operators lower to the scalar variable ops.
+Variable × constant-matrix products route through the CMVM solver that
+``solver_options['backend']`` names (``'cpu'`` host, ``'torch'`` the device
+search, on ``solver_options['device']``); the elementwise operators lower to
+the scalar variable ops.
 
 Counterpart of ``da4ml_tpu/trace/fixed_variable_array.py``, cut to what the
-port's first slice traces: input quantization, ``@`` by a constant matrix
+port traces so far: input quantization, ``@`` by a constant matrix
 (``cmvm_rows`` → ``cmvm``), relu, quantize and elementwise arithmetic. The
 numpy-protocol handlers (einsum, sort, where, reductions, lookup-table
 lowering) are not ported yet.
@@ -57,7 +59,8 @@ def cmvm_rows(cm: np.ndarray, rows: 'FixedVariableArray', solver_options: solver
 
     The solution depends on the row only through (qintervals, latencies) —
     rows with identical metadata share one solve, replayed symbolically per
-    row.
+    row. On the torch backend the distinct rows go to the device as one lane
+    batch, as the reference's jax backend does.
     """
     n_rows = rows.shape[0]
     qints_list, lats_list, keys = [], [], []
@@ -72,8 +75,35 @@ def cmvm_rows(cm: np.ndarray, rows: 'FixedVariableArray', solver_options: solver
     for i, g in enumerate(rep):
         uniq_idx[g] = i  # any representative row works
 
-    usols = [cmvm(cm, qints_list[i], lats_list[i], rows, solver_options) for i in uniq_idx]
+    if solver_options.get('backend') != 'torch':
+        usols = [cmvm(cm, qints_list[i], lats_list[i], rows, solver_options) for i in uniq_idx]
+    else:  # the device search takes all distinct rows as one lane batch
+        from ..cmvm.torch_search import solve_torch_many
+
+        opts = _merged_opts(rows, solver_options)
+        usols = solve_torch_many(
+            [np.ascontiguousarray(cm, dtype=np.float64)] * len(uniq),
+            qintervals_list=[qints_list[i] for i in uniq_idx],
+            latencies_list=[lats_list[i] for i in uniq_idx],
+            **{k: opts[k] for k in _TORCH_SOLVE_KW if k in opts},
+        )
     return [usols[g](rows._vars[i]) for i, g in zip(range(n_rows), rep)]
+
+
+#: the ``solver_options`` keys ``solve_torch_many`` takes
+_TORCH_SOLVE_KW = (
+    'method0',
+    'method1',
+    'hard_dc',
+    'decompose_dc',
+    'adder_size',
+    'carry_size',
+    'search_all_decompose_dc',
+    'method0_candidates',
+    'n_restarts',
+    'quality',
+    'device',
+)
 
 
 class FixedVariableArray:

@@ -1,7 +1,9 @@
 """The port's slice end to end at a small size: its trace, host solve and
 execution of the flagship-style MLP (8→16→8→3) equal the JAX package's
 trace executed by ``DaisExecutor(mode='pallas')`` (interpret mode on the
-CPU). Tolerance is exact."""
+CPU), and its device search (``backend='torch'``) yields the same program
+as the host solve and as the JAX package's ``backend='jax'`` search.
+Tolerance is exact."""
 
 import numpy as np
 import pytest
@@ -19,10 +21,10 @@ from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
 SMALL = dict(n_in=8, hidden=(16, 8), n_out=3)
 
 
-def _jax_flagship(n_in, hidden, n_out):
-    """``__graft_entry__._flagship_comb`` with the host ``cpu`` solver."""
+def _jax_flagship(n_in, hidden, n_out, backend='cpu'):
+    """``__graft_entry__._flagship_comb`` with the given solver backend."""
     rng = np.random.default_rng(20260729)
-    inp = FixedVariableArrayInput(n_in, hwconf=HWConfig(1, -1, -1), solver_options={'backend': 'cpu'})
+    inp = FixedVariableArrayInput(n_in, hwconf=HWConfig(1, -1, -1), solver_options={'backend': backend})
     x = inp.quantize(np.ones(n_in), np.full(n_in, 3), np.full(n_in, 2))
     dims = [n_in, *hidden, n_out]
     for li in range(len(dims) - 1):
@@ -61,3 +63,13 @@ def test_entry_returns_step_on_requested_device(small, monkeypatch):
 
 def test_flagship_is_traced_once_per_shape(small):
     assert flagship_comb(**SMALL) is small[0]
+
+
+def test_flagship_device_search_matches_host_and_jax(small):
+    port_host, _ = small
+    port_dev = flagship_comb(**SMALL, backend='torch', device='cpu')
+    assert port_dev is not port_host
+    want = _jax_flagship(**SMALL, backend='jax').to_binary()
+    assert np.array_equal(port_dev.to_binary(), port_host.to_binary())
+    assert np.array_equal(port_dev.to_binary(), want)
+    assert flagship_comb(**SMALL, backend='torch', device='cpu') is port_dev

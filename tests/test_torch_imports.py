@@ -20,6 +20,10 @@ x = inp.quantize(np.ones(4), np.full(4, 3), np.full(4, 2))
 comb = comb_trace(inp, (x @ np.array([[1., -3.], [2., 5.], [-7., 1.], [4., 4.]])).relu(i=np.full(2, 5), f=np.full(2, 2)))
 data = np.random.default_rng(0).uniform(-8, 8, (32, 4))
 assert np.array_equal(comb.predict(data, device='cpu'), comb.predict(data, backend='numpy'))
+from da4ml_tpu_torch.cmvm import solve_torch
+w = np.array([[3., -5., 7.], [6., 1., -2.], [-4., 4., 5.]])
+sol = solve_torch(w, device='cpu')
+assert np.array_equal(np.asarray(sol.kernel, np.float64), w)
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'da4ml_tpu' or m.startswith('da4ml_tpu.'))
 assert not bad, bad
 print('ok')
@@ -28,6 +32,18 @@ print('ok')
 
 def test_port_runs_without_jax_or_reference_package():
     proc = subprocess.run([sys.executable, '-c', _RUN], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == 'ok'
+
+
+def test_host_solver_imports_no_torch():
+    """The host solver's spawned workers import ``da4ml_tpu_torch.cmvm``;
+    the device search (and torch) load only when asked for."""
+    code = (
+        'import sys, da4ml_tpu_torch.cmvm as c; assert "torch" not in sys.modules, "torch"; '
+        'c.solve_torch; assert "torch" in sys.modules; print("ok")'
+    )
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == 'ok'
 
