@@ -5,9 +5,9 @@ Drives the port's main paths end to end on the card and checks every kernel
 on them against its plain PyTorch version:
 
 1. card: prints ``nvidia-smi``'s name and power limit; nvcc builds the DAIS
-   kernel K1 (``csrc/dais_exec.cu``) and the greedy-CSE kernel K2
-   (``csrc/fused_cse.cu``), sm_90a, one nvcc each, all started together;
-   prints ptxas' report of both;
+   kernel K1 (``csrc/dais_exec.cu``), the greedy-CSE kernel K2
+   (``csrc/fused_cse.cu``) and K2's phase-timing build, sm_90a, one nvcc
+   each, all started together; prints ptxas' report of K1 and K2;
 2. host solve: traces the flagship MLP (16→32→32→5, 4-bit weights) through
    the port's tracer and host CMVM solver into one DAIS program (timed on
    its own);
@@ -19,8 +19,11 @@ on them against its plain PyTorch version:
 4. device search (K2's main path): ``flagship_comb(backend='torch')`` traces
    and solves the flagship with the device CMVM search on the card (K2's
    launch count is reset just before and read just after; every rung call is
-   recorded); no lane may go to the host, and the program must be
-   byte-identical to the host-solved one;
+   recorded; the wall time has no stage timer inside); no lane may go to the
+   host, ``torch_search.init_cache`` must not run (K2 builds the score cache
+   itself), and the program must be byte-identical to the host-solved one;
+   a second run of the same search times the rung calls by stage (upload,
+   K2, fetch) and the host side by stage (tracing, decomposition, emission);
 5. flagship execution (K1's main path): 2^20 numpy-seeded samples through
    ``DaisExecutor`` on the device-solved program (K1's count reset just
    before, read just after) and through ``entry()``; the output must equal
@@ -28,11 +31,16 @@ on them against its plain PyTorch version:
    times the call's host stages, and K1 and its plain version;
 6. K2 corpus: every recorded flagship rung, and seeded random trit lanes
    (i == j chains, methods 0-5, adder/carry sizes unset and set, a padding
-   lane, K = 16 classes at P = 512 and at P = 1024, whose digits do not fit
-   in shared memory), through K2 and through its plain
-   version on the card: all five outputs equal (``torch.equal``); times K2
-   and the plain version per rung with CUDA events, and counts K2's bound
-   from the iterations each rung recorded (the kernel line sums the
+   lane, K = 16 classes at P = 512, 1024 and 2048, the last too large for
+   shared memory, so its slices take the global placement), through K2 and
+   through its plain version on the card, both from the same cache-less
+   inputs: all five outputs equal (``torch.equal``); prints each class's
+   cluster geometry, occupancy and ptxas report; times K2 and the plain
+   version per rung with CUDA events, K2's phases (clock cycles of its
+   phase-timing build) on every flagship rung, and the fixed cost of a
+   launch whose lanes all enter at ``cur == P`` (on the card, and the host
+   time of its foreign call), and counts K2's
+   bound from the iterations each rung recorded (the kernel line sums the
    flagship's rungs);
 7. wider layers: the four six-bit layers of ``bench.py`` (16×64, 64×32,
    32×32, 32×5) solved with ``solve_torch_many`` on the card, held to
@@ -50,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -108,6 +117,20 @@ def print_ptxas(log: str) -> None:
     for line in log.splitlines():
         if 'Function properties' in line or 'registers' in line or 'spill' in line:
             print('  ptxas:', line.strip())
+
+
+def k2_ptxas(log: str) -> dict[tuple[int, bool], tuple[int, int]]:
+    """ptxas' (registers, stack frame bytes) of each K2 instantiation, keyed
+    by (K, global placement)."""
+    out, key, stack = {}, None, 0
+    for line in log.splitlines():
+        if m := re.search(r'fused_cse_kernelILi(\d+)ELb([01])E', line):
+            key = (int(m[1]), m[2] == '1')
+        elif (m := re.search(r'(\d+) bytes stack frame', line)) and key:
+            stack = int(m[1])
+        elif (m := re.search(r'Used (\d+) registers', line)) and key:
+            out[key], key = (int(m[1]), stack), None
+    return out
 
 
 def check_corpus(torch, DaisExecutor, cuda_backend, run_program) -> None:
@@ -242,68 +265,148 @@ def run_dais_flagship(torch, prog, card: str) -> dict:
 # ---------------------------------------------------------------------------
 
 
-class RungRecorder:
-    """Records every ``torch_search.cse_rung`` call of a solve: (inputs,
-    spec), and the host seconds the calls take (upload, the torch-op cache
-    build and K2, to a synchronize the caller's fetch would wait for anyway)."""
+class Patched:
+    """Replaces functions of modules while active: ``{(module, name): make}``,
+    where ``make(real)`` returns the replacement of ``module.name``."""
 
-    def __init__(self, ts):
-        self.ts, self.real, self.calls, self.seconds = ts, ts.cse_rung, [], 0.0
+    def __init__(self, makers):
+        self.makers, self.saved = makers, {}
 
     def __enter__(self):
-        self.ts.cse_rung = self
+        for (mod, name), make in self.makers.items():
+            self.saved[mod, name] = getattr(mod, name)
+            setattr(mod, name, make(self.saved[mod, name]))
         return self
 
     def __exit__(self, *exc):
-        self.ts.cse_rung = self.real
-
-    def __call__(self, E0, qmeta0, lat0, cur0, method, spec, device=None):
-        import torch
-
-        self.calls.append(((E0, qmeta0, lat0, cur0, method), spec))
-        t0 = time.perf_counter()
-        out = self.real(E0, qmeta0, lat0, cur0, method, spec, device)
-        torch.cuda.synchronize()
-        self.seconds += time.perf_counter() - t0
-        return out
+        for (mod, name), fn in self.saved.items():
+            setattr(mod, name, fn)
 
 
-def rung_work(ts, inputs, rec, cur, spec) -> tuple[int, int, int]:
-    """(bytes, int32 operations, fp32 operations) one rung needs for this
-    run's data.
+def timed(seconds: dict, key: str, sync: bool = False):
+    """A maker for :class:`Patched`: the function, its host seconds added to
+    ``seconds[key]`` (ended by a device synchronize when ``sync``)."""
 
-    Bytes: every input read once and every output written once. Operations,
-    per recorded iteration, over its d distinct dirty rows {i, j, cur} (two
-    for an i == j chain), the dirty rows' digits counted by replaying the
-    iteration's record. int32, the exact recount: a nonzero digit at bit b
-    meets each of P slots once per shift that exists for it in each operand
-    order (B - b row first, b + 1 slot first), and the shift-0 product is the
-    same in both orders: B checks. fp32: the argmax over the 2B·P cache
-    heads; the scores of each dirty row's 2·(2B - 1)·P refreshed candidates
-    (at shift 0 only one operand order is a candidate); one compare per
-    refreshed column in the merge of each of the 2B·P cache rows (d·2B·P);
-    one pass over each of the d·2B rebuilt rows of P scores.
+    def make(real):
+        def fn(*args, **kw):
+            import torch
+
+            t0 = time.perf_counter()
+            out = real(*args, **kw)
+            if sync:
+                torch.cuda.synchronize()
+            seconds[key] += time.perf_counter() - t0
+            return out
+
+        return fn
+
+    return make
+
+
+class RungRecorder(Patched):
+    """Records every ``torch_search.cse_rung`` call of a solve (inputs, spec)
+    and counts the calls of ``torch_search.init_cache`` meanwhile (on the card
+    K2 builds the score cache itself). With ``stages``, also times the rung
+    calls by stage on the host clock, each stage ended by a device
+    synchronize: ``upload`` (``rung_inputs``), ``K2``
+    (``fused_cse.greedy_loop``: the wrapper's checks and the launch) and
+    ``fetch`` (the five outputs to the host). The stage timers add
+    synchronizes and fetches of their own, so a run with them is not the one
+    whose wall time is reported."""
+
+    def __init__(self, ts, fused_cse, stages: bool = False):
+        self.calls, self.init_cache_calls, self.stages = [], 0, stages
+        self.seconds = dict.fromkeys(('upload', 'K2', 'fetch'), 0.0)
+        makers = {(ts, 'cse_rung'): self._record, (ts, 'init_cache'): self._count_init_cache}
+        if stages:
+            makers[ts, 'rung_inputs'] = timed(self.seconds, 'upload', sync=True)
+            makers[fused_cse, 'greedy_loop'] = timed(self.seconds, 'K2', sync=True)
+        super().__init__(makers)
+
+    def _record(self, real):
+        def cse_rung(E0, qmeta0, lat0, cur0, method, spec, device=None):
+            self.calls.append(((E0, qmeta0, lat0, cur0, method), spec))
+            out = real(E0, qmeta0, lat0, cur0, method, spec, device)
+            if self.stages:
+                t0 = time.perf_counter()
+                out = tuple(t.cpu() for t in out)
+                self.seconds['fetch'] += time.perf_counter() - t0
+            return out
+
+        return cse_rung
+
+    def _count_init_cache(self, real):
+        def init_cache(*args, **kw):
+            self.init_cache_calls += 1
+            return real(*args, **kw)
+
+        return init_cache
+
+    @property
+    def total(self) -> float:
+        return sum(self.seconds.values())
+
+
+def host_clock(ts) -> tuple[Patched, dict]:
+    """Times the device search's host side: ``solve`` (all of
+    ``solve_torch_many``), ``decomposition`` (kernel decomposition and each
+    lane's CSD) and ``emission`` (each lane's state from its op records, and
+    its adder tree)."""
+    seconds = dict.fromkeys(('solve', 'decomposition', 'emission'), 0.0)
+    stages = {'solve_torch_many': 'solve', 'kernel_decompose': 'decomposition', '_prepare_lane': 'decomposition',
+              '_host_state_from': 'emission', 'to_solution': 'emission'}  # fmt: skip
+    return Patched({(ts, name): timed(seconds, key) for name, key in stages.items()}), seconds
+
+
+def rung_work(ts, inputs, rec, cur, spec) -> dict[str, int]:
+    """Bytes, and int32 and fp32 operations of the cache build and of the
+    loop, that one rung needs for this run's data.
+
+    Bytes: every input read once and every output written once; the score
+    cache is built and kept on chip and moves none. Operations count only
+    live slots (rows holding a nonzero digit; a check against an all-zero row
+    finds nothing, and its candidates are invalid), L of them at a time.
+    Cache build, per lane that runs: int32, every live row's nonzero digit at
+    bit b meets each live slot once per shift that exists for it with the row
+    first (B - b checks); fp32, one score and one top-K compare for each of
+    the 2B·L·L candidates. Loop, per recorded iteration, over its d distinct
+    dirty rows {i, j, cur} (two for an i == j chain), replayed from the
+    iteration's record: int32, the exact recount, where a nonzero digit at
+    bit b meets each live slot once per shift that exists for it in each
+    operand order (B - b row first, b + 1 slot first), the shift-0 product
+    the same in both orders: B checks; fp32, the argmax over the 2B·L cache
+    heads, the scores of each dirty row's 2·(2B - 1)·L refreshed candidates
+    (at shift 0 only one operand order is a candidate), one compare per
+    refreshed column in the merge of each of the 2B·L cache rows (d·2B·L),
+    one pass over each of the d·2B rebuilt rows of L scores.
     """
     import torch
 
     E0, _, _, cur0, _ = (np.asarray(x) for x in inputs)
     N, P, O, B = E0.shape
-    TB, K = 2 * B, spec.topk
-    n_bytes = 2 * (N * P * O * B + 16 * N * P) + 8 * N * TB * P * K + 8 * N + 16 * N * spec.n_iters
-    int_ops = fp_ops = 0
+    TB = 2 * B
+    work = {'bytes': 2 * (N * P * O * B + 16 * N * P) + 12 * N + 16 * N * spec.n_iters,
+            'int_build': 0, 'fp_build': 0, 'int_loop': 0, 'fp_loop': 0}  # fmt: skip
     lane = torch.zeros(1, dtype=torch.int64)
     for n in range(N):
+        if cur0[n] >= P:  # a padding or frozen lane does nothing
+            continue
         E = torch.from_numpy(E0[n : n + 1].copy())
+        live = int(E[0].ne(0).any(-1).any(-1).sum())
+        bits = torch.nonzero(E[0])[:, 2]
+        work['int_build'] += live * int((B - bits).sum())
+        work['fp_build'] += 2 * TB * live * live
         for t in range(int(cur[n]) - int(cur0[n])):
             id0, id1, sub, shift = (int(v) for v in rec[n, t])
             i, j, s = (id0, id1, shift) if shift >= 0 else (id1, id0, -shift)
             c = int(cur0[n]) + t
             args = (torch.tensor([v]) for v in (sub, s, i, j))
             E[0, c] = ts._dev_substitute(E, lane, *args, B)[0]  # the search's own substitution
+            live = int(E[0].ne(0).any(-1).any(-1).sum())
             dirty = sorted({i, j, c})
-            int_ops += B * P * int((E[0, dirty] != 0).sum())
-            fp_ops += TB * P + len(dirty) * (2 * (TB - 1) * P + TB * P + TB * P)
-    return n_bytes, int_ops, fp_ops
+            work['int_loop'] += B * live * int((E[0, dirty] != 0).sum())
+            work['fp_loop'] += TB * live + len(dirty) * (2 * (TB - 1) * live + TB * live + TB * live)
+    return work
 
 
 def random_rung(rng, P: int, O: int, B: int, n_rows: int, N: int = 7):
@@ -326,38 +429,98 @@ def random_rung(rng, P: int, O: int, B: int, n_rows: int, N: int = 7):
     return E, q, lat, cur, (np.arange(N) % 6).astype(np.int32)
 
 
-def check_rung(torch, ts, fused_cse, inputs, spec, name: str) -> dict:
-    """One rung through K2 and through its plain version on the card: all
-    five outputs must be equal. Also K2's and the plain version's
-    milliseconds (CUDA events) and the rung's work for its bound."""
+def k2_geometry(torch, fused_cse, P: int, O: int, B: int, K: int, ptxas) -> dict:
+    """K2's launch shape for a rung class on card 0: cluster size, block
+    size, placement, shared memory per block (the slice when it lives there,
+    and the static arrays), clusters the card holds at once, and ptxas'
+    registers and stack frame of the instantiation it runs."""
+    card = torch.device('cuda', 0)
+    C, threads, placement = fused_cse.cluster_geometry(P, O, B, K, fused_cse.device_smem(card))
+    slice_bytes = fused_cse.slice_layout(P, O, B, K, C)['bytes']
+    dyn = slice_bytes if placement == 'shared' else 0
+    regs, stack = ptxas.get((K, placement == 'global'), (None, None))
+    return {'C': C, 'threads': threads, 'placement': placement, 'slice_bytes': slice_bytes, 'dynamic_smem': dyn,
+            'active_clusters': fused_cse.active_clusters(card, K, placement, C, threads, dyn), 'registers': regs,
+            'stack': stack}  # fmt: skip
+
+
+def check_rung(torch, ts, fused_cse, inputs, spec, name: str, phases: bool = False) -> dict:
+    """One rung through K2 and through its plain version on the card, both
+    from the same cache-less inputs: all five outputs must be equal. Also
+    K2's and the plain version's milliseconds (CUDA events; K2's launch
+    alone, its wrapper's checks and allocations made before the span), the
+    rung's work for its bound, and with ``phases`` the clock cycles of K2's
+    phases from its phase-timing build."""
     dev_in = ts.rung_inputs(*inputs, spec, device='cuda')
 
     def fresh():  # both update the state in place
         return [t.clone() for t in dev_in]
 
     got = fused_cse.launch(*fresh(), spec)
-    want = ts.greedy_plain(*fresh(), spec)
+    want = ts.rung_plain(*fresh(), spec)
     torch.cuda.synchronize()
     for field, g, w in zip(('E', 'qmeta', 'lat', 'records', 'cur'), got, want):
         if not torch.equal(g, w):
             bad = (g != w).nonzero()[:5].tolist()
             raise AssertionError(f'K2 rung {name}: {field} differs from the plain version at {bad}')
     rec, cur = got[3].cpu().numpy(), got[4].cpu().numpy()
-    done = cur - dev_in[5].cpu().numpy()  # iterations per lane
+    done = cur - dev_in[3].cpu().numpy()  # iterations per lane
     out = {
         'name': name, 'N': len(cur), 'P': spec.P, 'O': spec.O, 'B': spec.B, 'K': spec.topk, 'iters': int(done.sum()),
-        'chains': sum(int((rec[n, :k, 0] == rec[n, :k, 1]).sum()) for n, k in enumerate(done)),
+        'max_iters': int(done.max()), 'chains': sum(int((rec[n, :k, 0] == rec[n, :k, 1]).sum()) for n, k in enumerate(done)),
         'max_abs_err': max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want) if g.numel()),
     }  # fmt: skip
-    out['ms'] = cuda_ms(lambda *a: fused_cse.launch(*a, spec), reps=5, fresh=fresh)
-    out['plain_ms'] = cuda_ms(lambda *a: ts.greedy_plain(*a, spec), reps=3, fresh=fresh)
-    n_bytes, int_ops, fp_ops = rung_work(ts, inputs, rec, cur, spec)
-    out['bytes_ms'] = n_bytes / HBM_BYTES_PER_S * 1e3
-    out['int_ms'] = int_ops / INT32_OPS_PER_S * 1e3
-    out['fp_ms'] = fp_ops / FP32_OPS_PER_S * 1e3
+    out['ms'] = cuda_ms(fused_cse.run, reps=5, fresh=lambda: [fused_cse.prepare(*fresh(), spec)])
+    out['plain_ms'] = cuda_ms(lambda *a: ts.rung_plain(*a, spec), reps=3, fresh=fresh)
+    if phases:
+        out['phases'] = fused_cse.phase_cycles(*fresh(), spec)
+    work = rung_work(ts, inputs, rec, cur, spec)
+    out['bytes_ms'] = work['bytes'] / HBM_BYTES_PER_S * 1e3
+    for part in ('build', 'loop'):
+        out[f'int_{part}_ms'] = work[f'int_{part}'] / INT32_OPS_PER_S * 1e3
+        out[f'fp_{part}_ms'] = work[f'fp_{part}'] / FP32_OPS_PER_S * 1e3
+    out['int_ms'] = out['int_build_ms'] + out['int_loop_ms']
+    out['fp_ms'] = out['fp_build_ms'] + out['fp_loop_ms']
     # the int32 and fp32 pipes issue side by side: the least time is the larger
     out['ops_ms'] = max(out['int_ms'], out['fp_ms'])
     return out
+
+
+def k2_empty_launch_ms(torch, ts, fused_cse, inputs, spec) -> float:
+    """CUDA-event milliseconds of a K2 launch whose lanes all enter at
+    cur == P, so every cluster leaves at once: the fixed cost of a launch
+    (the wrapper's foreign call and the cluster launch)."""
+    dev_in = ts.rung_inputs(*inputs, spec, device='cuda')
+    dev_in[3].fill_(spec.P)
+    return cuda_ms(fused_cse.run, reps=20, fresh=lambda: [fused_cse.prepare(*[t.clone() for t in dev_in], spec)])
+
+
+def k2_launch_host_us(torch, ts, fused_cse, inputs, spec, reps: int = 100) -> float:
+    """Host microseconds of one ``fused_cse.run`` call (the launch's foreign
+    call), the mean of ``reps`` back-to-back calls whose lanes all enter at
+    cur == P, so the card never holds the host back."""
+    dev_in = ts.rung_inputs(*inputs, spec, device='cuda')
+    dev_in[3].fill_(spec.P)
+    prep = fused_cse.prepare(*dev_in, spec)
+    fused_cse.run(prep)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fused_cse.run(prep)
+    us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase_line(ph: dict) -> str:
+    """K2's phase cycles (``fused_cse.phase_cycles``) as one line: the cache
+    build's cycles, then each phase's cycles per iteration and its share."""
+    ph = dict(ph)
+    it = max(ph.pop('iterations'), 1)
+    build = ph.pop('cache build')
+    loop = sum(ph.values())
+    parts = ', '.join(f'{k} {v / it:.0f} ({v / max(loop, 1):.1%})' for k, v in ph.items())
+    return f'cache build {build} cycles; {it} iterations of {loop / it:.0f} cycles: {parts}'
 
 
 def main() -> int:
@@ -377,21 +540,22 @@ def main() -> int:
     card = card_line()
     print(card, flush=True)
 
-    # phase 1: nvcc builds both kernels, one process each, all started
-    # together; phase 2: then the host solves the flagship (timed alone: the
-    # builds would share its cores)
+    # phase 1: nvcc builds K1, K2 and K2's phase-timing build, one process
+    # each, all started together; phase 2: then the host solves the flagship
+    # (timed alone: the builds would share its cores)
     builds: dict[str, float] = {}
     build_err: list[BaseException] = []
 
-    def _build(name, module):
+    def _build(name, build):
         t0 = time.perf_counter()
         try:
-            module.build()
+            build()
         except BaseException as e:  # re-raised on the main thread below
             build_err.append(e)
         builds[name] = time.perf_counter() - t0
 
-    threads = [threading.Thread(target=_build, args=a) for a in (('dais_exec', cuda_backend), ('fused_cse', fused_cse))]
+    jobs = (('dais_exec', cuda_backend.build), ('fused_cse', fused_cse.build), ('fused_cse phases', fused_cse.build_phases))
+    threads = [threading.Thread(target=_build, args=a) for a in jobs]
     for t in threads:
         t.start()
     for t in threads:
@@ -401,6 +565,9 @@ def main() -> int:
     for name, log in (('dais_exec', cuda_backend.build_log), ('fused_cse', fused_cse.build_log)):
         print(f'build {name}: {builds[name]:.3f} s (nvcc, sm_90a)')
         print_ptxas(log)
+    print(f"build fused_cse phases: {builds['fused_cse phases']:.3f} s (nvcc, sm_90a, -DFUSED_CSE_PHASES)")
+    k2_regs = k2_ptxas(fused_cse.build_log)
+    assert len(k2_regs) == 2 * len(fused_cse.CACHE_DEPTHS), f'ptxas reported K2 instantiations {sorted(k2_regs)}'
     t0 = time.perf_counter()
     comb = flagship_comb(n_workers=os.cpu_count() or 1)
     solve_s = time.perf_counter() - t0
@@ -409,9 +576,10 @@ def main() -> int:
     # phase 3: K1 corpus, kernel vs plain version on the card
     check_corpus(torch, DaisExecutor, cuda_backend, run_program)
 
-    # phase 4: K2's main path — the flagship through the device search
+    # phase 4: K2's main path — the flagship through the device search, its
+    # wall time on the host clock with no stage timer inside
     pmax0 = ts.search_stats['pmax_host_fallbacks']
-    with RungRecorder(ts) as flag_rungs:
+    with RungRecorder(ts, fused_cse) as flag_rungs:
         fused_cse.reset_counts()
         t0 = time.perf_counter()
         comb_dev = flagship_comb(backend='torch')
@@ -420,46 +588,87 @@ def main() -> int:
         k2_launches = fused_cse.launches
     pmax_routes = ts.search_stats['pmax_host_fallbacks'] - pmax0
     classes = sorted({(s.P, s.O, s.B, s.topk, s.R_in) for _, s in flag_rungs.calls})
-    print(f'device search: flagship solved in {dev_s:.3f} s on the card (host solve {solve_s:.3f} s), of which '
-          f'{flag_rungs.seconds:.3f} s in the rung calls (upload, cache build, K2) and the rest in tracing, '
-          f'decomposition and emission on the host; {len(flag_rungs.calls)} rung calls in {len(classes)} classes '
-          f'(P, O, B, K, R_in) {classes}; K2 launched {k2_launches} times; PMAX host routes {pmax_routes}',
+    print(f'device search: flagship solved in {dev_s:.3f} s on the card (host solve {solve_s:.3f} s); '
+          f'{len(flag_rungs.calls)} rung calls in {len(classes)} classes (P, O, B, K, R_in) {classes}; K2 launched '
+          f'{k2_launches} times; init_cache calls {flag_rungs.init_cache_calls}; PMAX host routes {pmax_routes}',
           flush=True)  # fmt: skip
-    assert k2_launches > 0, 'the device search never launched K2'
+    assert k2_launches == len(flag_rungs.calls) > 0, 'K2 must launch once per rung call of the device search'
+    assert flag_rungs.init_cache_calls == 0, 'the device search built a score cache outside K2'
     assert pmax_routes == 0, f'{pmax_routes} flagship lanes went to the host solver'
     assert np.array_equal(comb_dev.to_binary(), comb.to_binary()), 'device-solved flagship differs from the host-solved'
     prog = decode(comb_dev.to_binary())
     print(f'device search: program byte-identical to the host solve ({prog.n_ops} ops, cost {comb_dev.cost})')
+    # the same search again (device='cuda' is its own cache key, so it traces
+    # anew), every stage timed: rung calls by stage, and the host side
+    clock, host_s = host_clock(ts)
+    with RungRecorder(ts, fused_cse, stages=True) as staged, clock:
+        fused_cse.reset_counts()
+        t0 = time.perf_counter()
+        comb_staged = flagship_comb(backend='torch', device='cuda')
+        torch.cuda.synchronize()
+        staged_s = time.perf_counter() - t0
+    assert fused_cse.launches == len(staged.calls) == len(flag_rungs.calls) and staged.init_cache_calls == 0
+    assert np.array_equal(comb_staged.to_binary(), comb.to_binary()), 'the staged device search differs'
+    rung_s = staged.total
+    stages = ', '.join(f'{k} {v:.4f} s' for k, v in staged.seconds.items())
+    other_s = host_s['solve'] - rung_s - host_s['decomposition'] - host_s['emission']
+    print(f'device search by stage (a second run, {staged_s:.3f} s, the timers synchronizing the device): rung calls '
+          f'{rung_s:.4f} s ({stages}); host: tracing {staged_s - host_s["solve"]:.4f} s, decomposition '
+          f'{host_s["decomposition"]:.4f} s, emission {host_s["emission"]:.4f} s, rung ladder and argmin {other_s:.4f} s',
+          flush=True)  # fmt: skip
 
     # phase 5: K1's main path at 2^20 samples, on the device-solved program
     dais = run_dais_flagship(torch, prog, card)
 
-    # phase 6: K2 corpus — the flagship's rungs (timed) and random trit lanes
-    rows = [check_rung(torch, ts, fused_cse, inp, spec, f'flagship {k}')
+    # phase 6: K2 corpus — the flagship's rungs (timed, phases of each) and
+    # random trit lanes
+    rows = [check_rung(torch, ts, fused_cse, inp, spec, f'flagship {k}', phases=True)
             for k, (inp, spec) in enumerate(flag_rungs.calls)]  # fmt: skip
     rng = np.random.default_rng(20261016)
-    # the last class's digits (1024 x 64 x 4 bytes) exceed the 227 KB of shared
-    # memory a block can have, so K2 keeps them in global memory
+    # the last class's slices (P = 2048 over a cluster of 16) exceed the 227 KB
+    # of shared memory a block can have, so K2 keeps them in global memory
     synth = [(64, 8, 4, -1, -1, 16), (128, 32, 6, 3, 8, 32), (256, 32, 6, -1, -1, 32), (256, 8, 2, 2, -1, 128),
-             (512, 8, 4, -1, -1, 64), (1024, 64, 4, -1, -1, 16)]  # fmt: skip
+             (512, 8, 4, -1, -1, 64), (1024, 64, 4, -1, -1, 16), (2048, 8, 4, -1, -1, 16)]  # fmt: skip
     for P, O, B, adder, carry, n_rows in synth:
         spec = ts._KernelSpec(P, O, B, adder, carry, R_in=n_rows, topk=8 if P <= 256 else 16)
         rows.append(check_rung(torch, ts, fused_cse, random_rung(rng, P, O, B, n_rows), spec,
-                               f'random P{P} O{O} B{B} a{adder} c{carry}'))  # fmt: skip
+                               f'random P{P} O{O} B{B} a{adder} c{carry}', phases=P == 2048))  # fmt: skip
+    shapes = {}
     for r in rows:
-        print(f"K2 rung {r['name']}: N {r['N']} P {r['P']} O {r['O']} B {r['B']} K {r['K']}, {r['iters']} iterations, "
-              f"{r['chains']} i == j chains: equal, K2 {r['ms']:.4f} ms, plain {r['plain_ms']:.2f} ms")  # fmt: skip
+        key = (r['P'], r['O'], r['B'], r['K'])
+        if key not in shapes:
+            shapes[key] = g = k2_geometry(torch, fused_cse, *key, k2_regs)
+            print(f"K2 class P {key[0]} O {key[1]} B {key[2]} K {key[3]}: cluster {g['C']} x {g['threads']} threads, "
+                  f"{g['placement']} slice {g['slice_bytes']} B, dynamic shared memory {g['dynamic_smem']} B per block, "
+                  f"{g['active_clusters']} clusters at once; {g['registers']} registers, "
+                  f"{g['stack']} B stack frame")  # fmt: skip
+            assert g['active_clusters'] > 0, key
+        r['placement'] = shapes[key]['placement']
+    for r in rows:
+        print(f"K2 rung {r['name']}: N {r['N']} P {r['P']} O {r['O']} B {r['B']} K {r['K']}, {r['iters']} iterations "
+              f"(at most {r['max_iters']} a lane), {r['chains']} i == j chains: equal, K2 {r['ms']:.4f} ms "
+              f"({r['ms'] * 1e3 / max(r['max_iters'], 1):.2f} us per iteration of its longest lane), "
+              f"plain {r['plain_ms']:.2f} ms")  # fmt: skip
+        if 'phases' in r:
+            print(f"  [{card}] K2 phases, lane 0, clock64 cycles: {phase_line(r['phases'])}")
+    empty = [k2_empty_launch_ms(torch, ts, fused_cse, *flag_rungs.calls[k]) for k in (0, len(flag_rungs.calls) - 1)]
+    host_us = [k2_launch_host_us(torch, ts, fused_cse, *flag_rungs.calls[k]) for k in (0, len(flag_rungs.calls) - 1)]
+    print(f'[{card}] K2 launch with every lane at cur == P (the fixed cost of a launch): '
+          f'{", ".join(f"{ms:.4f} ms" for ms in empty)} on the card, {", ".join(f"{us:.2f} us" for us in host_us)} '
+          f'of host time per launch call (100 back to back) (the first and the last flagship rung)')  # fmt: skip
     assert any(r['K'] == 16 for r in rows) and any(r['chains'] for r in rows)
-    timed = [r for r in rows if r['name'].startswith('flagship')]
-    k2_ms, k2_plain = sum(r['ms'] for r in timed), sum(r['plain_ms'] for r in timed)
-    k2_bound = sum(max(r['bytes_ms'], r['ops_ms']) for r in timed)
-    ops_ms, bytes_ms = sum(r['ops_ms'] for r in timed), sum(r['bytes_ms'] for r in timed)
-    int_ms, fp_ms = sum(r['int_ms'] for r in timed), sum(r['fp_ms'] for r in timed)
-    print(f'[{card}] fused_cse: {k2_ms:.4f} ms over the flagship\'s {len(timed)} rungs '
-          f'({sum(r["iters"] for r in timed)} iterations); plain version {k2_plain:.2f} ms; '
+    assert {r['placement'] for r in rows} == {'shared', 'global'}, 'K2 must run both placements'
+    flag_rows = [r for r in rows if r['name'].startswith('flagship')]
+    k2_ms, k2_plain = sum(r['ms'] for r in flag_rows), sum(r['plain_ms'] for r in flag_rows)
+    k2_bound = sum(max(r['bytes_ms'], r['ops_ms']) for r in flag_rows)
+    ops_ms, bytes_ms = sum(r['ops_ms'] for r in flag_rows), sum(r['bytes_ms'] for r in flag_rows)
+    part = {k: sum(r[k] for r in flag_rows) for k in ('int_build_ms', 'fp_build_ms', 'int_loop_ms', 'fp_loop_ms')}
+    print(f'[{card}] fused_cse: {k2_ms:.4f} ms over the flagship\'s {len(flag_rows)} rungs '
+          f'({sum(r["iters"] for r in flag_rows)} iterations), cache build included; plain version {k2_plain:.2f} ms; '
           f'bound {k2_bound:.6f} ms by {"operations" if ops_ms >= bytes_ms else "bytes"} '
-          f'(operations {ops_ms:.6f} ms: int32 recount {int_ms:.6f} ms, fp32 scores, merge and argmax {fp_ms:.6f} ms; '
-          f'HBM {bytes_ms:.6f} ms); K2 {k2_ms / k2_bound:.0f}x the bound')  # fmt: skip
+          f'(operations {ops_ms:.6f} ms: int32 cache build {part["int_build_ms"]:.6f} ms and recount '
+          f'{part["int_loop_ms"]:.6f} ms, fp32 cache build {part["fp_build_ms"]:.6f} ms and scores, merge and argmax '
+          f'{part["fp_loop_ms"]:.6f} ms; HBM {bytes_ms:.6f} ms); K2 {k2_ms / k2_bound:.0f}x the bound')  # fmt: skip
 
     # phase 7: the wider six-bit layers of bench.py through the device search
     wrng = np.random.default_rng(20260729)
@@ -467,15 +676,14 @@ def main() -> int:
     for ni, no in WIDE_LAYERS:
         mag = wrng.integers(0, 2**6, (ni, no)).astype(np.float64)
         kernels.append(mag * wrng.choice([-1.0, 1.0], (ni, no)))
-    with RungRecorder(ts) as wide_rungs:
+    with RungRecorder(ts, fused_cse) as wide_rungs:
         t0 = time.perf_counter()
         sols = solve_torch_many(kernels)
         torch.cuda.synchronize()
         wide_s = time.perf_counter() - t0
     for k, s in zip(kernels, sols):
         assert np.array_equal(np.asarray(s.kernel, np.float64), k), f'wide layer {k.shape} is not exact'
-    print(f'wider layers {WIDE_LAYERS}: {wide_s:.3f} s on the card ({wide_rungs.seconds:.3f} s in rung calls), '
-          f'exact; cost {[float(s.cost) for s in sols]} (total {sum(float(s.cost) for s in sols)}), '
+    print(f'wider layers {WIDE_LAYERS}: {wide_s:.3f} s on the card, exact; cost {[float(s.cost) for s in sols]} (total {sum(float(s.cost) for s in sols)}), '
           f'{len(wide_rungs.calls)} rungs, largest P {max(s.P for _, s in wide_rungs.calls)}')  # fmt: skip
 
     # phase 8: the port imported nothing of JAX

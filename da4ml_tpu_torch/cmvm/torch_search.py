@@ -14,10 +14,11 @@ with a leading lane axis:
 - lanes are (matrix, decompose depth, method, restart) searches; the rung
   ladder re-enters unfinished lanes at a larger slot budget ``P``.
 
-``cse_rung`` is one rung: the stage-entry cache build runs as torch ops
-(``init_cache``), the greedy loop runs through ``fused_cse.greedy_loop`` —
-on a CUDA tensor the hand-written kernel ``csrc/fused_cse.cu``, on a CPU
-tensor its plain version :func:`greedy_plain`, a Python loop of batched
+``cse_rung`` is one rung, the stage-entry cache build and the greedy loop,
+through ``fused_cse.greedy_loop``: on a CUDA tensor the hand-written kernel
+``csrc/fused_cse.cu``, which builds the cache itself; on a CPU tensor its
+plain version :func:`rung_plain` — the cache build in torch ops
+(:func:`init_cache`), then :func:`greedy_plain`, a Python loop of batched
 torch ops over the lanes. The host does CSD/kernel decomposition, adder-tree
 emission (``core.to_solution``) and the argmin over candidates.
 
@@ -475,11 +476,20 @@ def greedy_plain(E, qm, lat, tv, tc, cur, method, spec: _KernelSpec):
     return E, qm, lat, rec, cur_io
 
 
+def rung_plain(E, qm, lat, cur, method, spec: _KernelSpec) -> tuple:
+    """K2's plain version, the whole rung from its cache-less state: the
+    score cache built by :func:`init_cache`, then :func:`greedy_plain`.
+    Returns ``(E, qmeta, lat, op records, cur)``; ``E, qm, lat, cur`` are
+    updated in place."""
+    tv, tc = init_cache(E, qm, lat, method, spec.topk)
+    return greedy_plain(E, qm, lat, tv, tc, cur, method, spec)
+
+
 def rung_inputs(E0, qmeta0, lat0, cur0, method, spec: _KernelSpec, device=None) -> tuple:
-    """The greedy loop's inputs on ``device``: ``(E, qm, lat, tv, tc, cur,
-    method)``, with the score cache built by :func:`init_cache`. They are
-    new tensors (the loop updates its state in place), never views of the
-    arguments.
+    """A rung's inputs on ``device``: ``(E, qm, lat, cur, method)``. They are
+    new tensors (the rung updates its state in place), never views of the
+    arguments; the score cache is the rung's own (K2 builds it on the card,
+    :func:`rung_plain` on the CPU).
 
     Inputs (numpy arrays or tensors): ``E0`` int8 [N, P, O, B], ``qmeta0``
     f32 [N, P, 3] (lo, hi, step), ``lat0`` f32 [N, P], ``cur0`` int32 [N]
@@ -499,8 +509,7 @@ def rung_inputs(E0, qmeta0, lat0, cur0, method, spec: _KernelSpec, device=None) 
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f'cse_rung: {name} has shape {tuple(t.shape)}, the class {spec} needs {shape}')
-    tv, tc = init_cache(E, qm, lat, meth, spec.topk)
-    return E, qm, lat, tv, tc, cur, meth
+    return E, qm, lat, cur, meth
 
 
 def cse_rung(E0, qmeta0, lat0, cur0, method, spec: _KernelSpec, device=None) -> tuple:
@@ -510,7 +519,7 @@ def cse_rung(E0, qmeta0, lat0, cur0, method, spec: _KernelSpec, device=None) -> 
     on ``device``: record ``t`` of a lane is ``(id0, id1, sub, shift)`` of
     the op placed in slot ``cur0 + t``. Resumable: a lane that ends at
     ``cur == P`` re-enters a larger rung with its final state padded.
-    The greedy loop runs K2 on a CUDA device, its plain version on the CPU.
+    The rung runs K2 on a CUDA device, its plain version on the CPU.
     """
     from . import fused_cse
 

@@ -7,6 +7,12 @@ the port's host solver op for op. Inputs are made with numpy and handed to
 both packages. Tolerance is exact.
 """
 
+import re
+import shutil
+import subprocess
+from pathlib import Path
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -77,22 +83,39 @@ def test_k2_wrapper_takes_plain_version_on_cpu(rng):
     spec = ts._KernelSpec(32, 8, 2, -1, -1, topk=8)
     lanes = rung_lanes(rng, 32, 8, 2, 8)
     inputs = ts.rung_inputs(*lanes, spec, device='cpu')
-    assert not np.shares_memory(inputs[0].numpy(), lanes[0]) and not np.shares_memory(inputs[5].numpy(), lanes[3])
+    assert len(inputs) == 5, 'a rung takes no score cache: K2 builds its own'
+    assert not np.shares_memory(inputs[0].numpy(), lanes[0]) and not np.shares_memory(inputs[3].numpy(), lanes[3])
     state = [t.clone() for t in inputs]
     fused_cse.reset_counts()
     got = fused_cse.greedy_loop(*inputs, spec)
-    want = ts.greedy_plain(*state, spec)
+    want = ts.rung_plain(*state, spec)
     assert fused_cse.launches == 0
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    # the state is updated in place: E, qm, lat and cur are returned, and the
-    # two calls leave equal score caches
-    for k, t in zip((0, 1, 2, 4), (inputs[0], inputs[1], inputs[2], inputs[5])):
+    # the state is updated in place: E, qm, lat and cur are returned
+    for k, t in zip((0, 1, 2, 4), (inputs[0], inputs[1], inputs[2], inputs[3])):
         assert got[k] is t
-    assert not torch.equal(inputs[5], state[5].new_tensor(lanes[3]))
-    assert torch.equal(inputs[3], state[3]) and torch.equal(inputs[4], state[4])
+    assert not torch.equal(inputs[3], state[3].new_tensor(lanes[3]))
+    assert torch.equal(inputs[4], state[4])
     meta = [t.to('meta') for t in inputs]
     with pytest.raises(ValueError, match='CUDA tensors'):
         fused_cse.greedy_loop(*meta, spec)
+
+
+@pytest.mark.parametrize('P,O,B,K,adder,carry', [(32, 8, 2, 8, -1, -1), (64, 8, 4, 16, 3, 8), (64, 16, 6, 8, -1, -1)])
+def test_greedy_loop_builds_its_own_cache_on_cpu(rng, P, O, B, K, adder, carry):
+    """On CPU tensors, the rung from its cache-less inputs is the cache build
+    (init_cache) followed by the plain greedy loop, and launches nothing."""
+    spec = ts._KernelSpec(P, O, B, adder, carry, R_in=16, topk=K)
+    inputs = ts.rung_inputs(*rung_lanes(rng, P, O, B, 16), spec, device='cpu')
+    E, qm, lat, cur, meth = (t.clone() for t in inputs)
+    tv, tc = ts.init_cache(E, qm, lat, meth, K)
+    want = ts.greedy_plain(E, qm, lat, tv, tc, cur, meth, spec)
+    fused_cse.reset_counts()
+    got = fused_cse.greedy_loop(*inputs, spec)
+    assert fused_cse.launches == 0
+    for name, g, w in zip(('E', 'qmeta', 'lat', 'records', 'cur'), got, want):
+        assert torch.equal(g, w), name
+    assert (got[4][:-1] > inputs[3].new_tensor(16)).any(), 'the lanes must commit ops'
 
 
 def test_k2_launch_rejects_lane_entering_below_record_capacity(rng):
@@ -100,11 +123,119 @@ def test_k2_launch_rejects_lane_entering_below_record_capacity(rng):
     the record buffer: the wrapper raises before the launch."""
     spec = ts._KernelSpec(32, 8, 2, -1, -1, R_in=8, topk=8)
     inputs = list(ts.rung_inputs(*rung_lanes(rng, 32, 8, 2, 8), spec, device='cpu'))
-    inputs[5][1] = 7  # below R_in = 8: 25 ops for 24 records
+    inputs[3][1] = 7  # below R_in = 8: 25 ops for 24 records
     fused_cse.reset_counts()
     with pytest.raises(ValueError, match='P - n_iters = 8'):
         fused_cse.launch(*inputs, spec)
     assert fused_cse.launches == 0
+
+
+#: an H100's shared memory in bytes: per block with the opt-in, per SM,
+#: reserved per block
+_H100_SMEM = (232448, 233472, 1024)
+#: the (P, O, B) classes of the flagship's device search (K = 8)
+_FLAGSHIP_CLASSES = [(32, 8, 2), (32, 32, 4), (32, 32, 6), (64, 8, 4), (64, 8, 6), (64, 32, 2), (64, 32, 4), (64, 32, 6),
+                     (128, 8, 4), (128, 8, 6), (128, 32, 4), (128, 32, 6), (256, 32, 4), (256, 32, 6)]  # fmt: skip
+
+
+@pytest.mark.parametrize(
+    'P,O,B,K,placement',
+    [(P, O, B, 8, 'shared') for P, O, B in _FLAGSHIP_CLASSES]
+    + [(512, 8, 4, 16, 'shared'), (1024, 64, 4, 16, 'shared'), (2048, 8, 4, 16, 'global'), (32768, 32, 8, 16, 'global')],
+)
+def test_cluster_geometry(P, O, B, K, placement):
+    """K2's launch shape on an H100: the smallest cluster (2 to 16 blocks)
+    that leaves each block at most SLOTS_PER_CTA slots, the instantiation's
+    largest block, and the slice in
+    shared memory exactly when it fits beside the static arrays (else the
+    same layout in global memory)."""
+    C, threads, got = fused_cse.cluster_geometry(P, O, B, K, _H100_SMEM)
+    assert got == placement
+    assert C in (2, 4, 8, 16) and P % C == 0
+    assert P // C <= fused_cse.SLOTS_PER_CTA or C == fused_cse.MAX_CLUSTER
+    assert C == 2 or P // (C // 2) > fused_cse.SLOTS_PER_CTA, 'a smaller cluster would do'
+    assert threads == (512 if K <= 8 else 256), 'the instantiation\'s largest block'
+    assert re.search(rf'kThreadsFor = K > 8 \? kMaxThreads / 2 : kMaxThreads', _CU.read_text())
+    need = fused_cse.slice_layout(P, O, B, K, C)['bytes'] + fused_cse.STATIC_SMEM
+    assert (need <= _H100_SMEM[0]) == (placement == 'shared')
+    if placement == 'shared':  # one block of the cluster fits an SM beside the reserved bytes
+        assert need + _H100_SMEM[2] <= _H100_SMEM[1]
+
+
+@pytest.mark.parametrize('P,O,B,K', [(32, 8, 2, 8), (256, 32, 6, 8), (1024, 64, 4, 16), (2048, 8, 4, 16)])
+def test_slice_layout(P, O, B, K):
+    """The slice's regions are 16-byte aligned and disjoint, in the source's
+    Layout order, and hold what the kernel keeps there."""
+    C = fused_cse.cluster_geometry(P, O, B, K, _H100_SMEM)[0]
+    lay = fused_cse.slice_layout(P, O, B, K, C)
+    offs = [lay[r] for r in fused_cse.SLICE_REGIONS]
+    assert offs == sorted(offs) and all(o % 16 == 0 for o in offs) and offs[0] == 0
+    PC, TB = P // C, 2 * B
+    assert lay['tc'] - lay['tv'] >= 4 * K * TB * PC and lay['planes'] - lay['meta'] >= 16 * P
+    assert lay['parts'] - lay['planes'] >= 8 * fused_cse.plane_words(O, B) * P
+    assert lay['cv'] - lay['S'] >= 4 * 2 * 3 * TB * PC and lay['cc'] - lay['cv'] >= 4 * 3 * TB * C * K
+    assert lay['bytes'] >= lay['nov'] + 4 * 2 * 3 * PC
+
+
+def _split_topk(vals, k, C):
+    """K2's split top-K in plain torch: a partial top-k over each of C
+    contiguous column blocks (a block of the cluster's slots), then the top-k
+    of the C·k partial entries in cache order (the owner's merge)."""
+    P = vals.shape[-1]
+    PC = P // C
+    pv, pc = [], []
+    for r in range(C):
+        v, c = ts._topk_scan(vals[..., r * PC : (r + 1) * PC], k)
+        pv.append(v)
+        pc.append(torch.where(c >= 0, c + r * PC, -1))
+    return ts._merge_topk(torch.cat(pv, -1), torch.cat(pc, -1).to(torch.int32), k)
+
+
+@pytest.mark.parametrize('C', [1, 2, 4, 8, 16])
+def test_split_topk_equals_topk_scan(rng, C):
+    """A top-K split by slot blocks and merged by the row's owner is the
+    top-K of the whole row, ties (equal scores, -inf) included: the cache
+    order (score desc, column desc) is total over distinct columns."""
+    for P, K in ((64, 8), (256, 16), (32, 16)):
+        vals = torch.from_numpy(rng.integers(-3, 4, (12, P)).astype(np.float32))
+        vals[torch.from_numpy(rng.random((12, P)) < 0.4)] = -float('inf')
+        vals[0] = -float('inf')  # a dead row
+        want_v, want_c = ts._topk_scan(vals, K)
+        got_v, got_c = _split_topk(vals, K, C)
+        assert torch.equal(got_v, want_v) and torch.equal(got_c, want_c), (P, K)
+
+
+_CU = Path(fused_cse.SOURCE)
+
+
+def test_k2_source_agrees_with_wrapper():
+    """The wrapper's slice regions, launch signature and phase names match
+    the CUDA source (nothing checks them at run time but the card)."""
+    src = _CU.read_text()
+    layout = re.search(r'struct Layout \{(.*?)\};', src, re.S)[1]
+    assert re.findall(r'int (\w+);', layout) == [*fused_cse.SLICE_REGIONS, 'bytes']
+    assert 'Layout{' + ', '.join(f'off[{k}]' for k in range(len(fused_cse.SLICE_REGIONS) + 1)) + '}' in src
+    lib = SimpleNamespace(**{n: SimpleNamespace() for n in ('fused_cse_launch', 'fused_cse_active_clusters',
+                                                            'fused_cse_device_smem', 'fused_cse_error_string')})  # fmt: skip
+    fused_cse._declare(lib)
+    for name in ('fused_cse_launch', 'fused_cse_active_clusters', 'fused_cse_device_smem'):
+        params = re.search(rf'int {name}\((.*?)\)\s*\{{', src, re.S)[1]
+        assert len(params.split(',')) == len(getattr(lib, name).argtypes), name
+    assert f'ph_acc[{len(fused_cse.PHASES)}]' in src
+    assert f'constexpr int kMaxCluster = {fused_cse.MAX_CLUSTER};' in src
+
+
+@pytest.mark.parametrize('defines', [(), ('-DFUSED_CSE_PHASES',)])
+def test_k2_source_parses_with_stub_headers(defines):
+    """``g++ -fsyntax-only`` parses the CUDA source against declaration-only
+    stubs of the CUDA headers: C++ errors show here, not first on the card."""
+    gxx = shutil.which('g++')
+    if gxx is None:
+        pytest.skip('no g++ on this machine')
+    stub = Path(__file__).resolve().parent / 'cuda_stub'
+    proc = subprocess.run([gxx, '-std=c++17', '-fsyntax-only', '-I', str(stub), *defines, '-x', 'c++', str(_CU)],
+                          capture_output=True, text=True)  # fmt: skip
+    assert proc.returncode == 0, proc.stderr
 
 
 @pytest.mark.parametrize(
