@@ -14,8 +14,12 @@ on them against its plain PyTorch version:
 3. K1 corpus: the DAIS kernel against its plain ``level`` version on the
    card, bit for bit (``torch.equal``), on a seeded synth corpus that covers
    all eleven opcode families and wide int64 programs, at batches of 33,
-   1000 and 131073 rows; one program's buffer lies just under 48 KB of shared
-   memory, and one int64 program takes the global-memory scratch path;
+   1000 and 131073 rows; one program's block takes more than 48 KB of shared
+   memory, one runs two tiles a block, and one int64 program takes the
+   global-memory scratch path; prints each program's slots, phases, tiles per
+   block, warps per tile, record bytes, the occupancy API's resident warps
+   per SM, buffer path, and ptxas' registers and spills of the instantiation
+   it runs;
 4. device search (K2's main path): ``flagship_comb(backend='torch')`` traces
    and solves the flagship with the device CMVM search on the card (K2's
    launch count is reset just before and read just after; every rung call is
@@ -28,7 +32,10 @@ on them against its plain PyTorch version:
    ``DaisExecutor`` on the device-solved program (K1's count reset just
    before, read just after) and through ``entry()``; the output must equal
    the plain version on the card and the reference interpreter on the host;
-   times the call's host stages, and K1 and its plain version;
+   prints its launch shape as for the corpus (at least 24 resident warps per
+   SM); times the call's host stages, and K1 and its plain version; times K1
+   again with other phase sizes (one phase per level among them) and warps
+   per tile, each held to the plain version;
 6. K2 corpus: every recorded flagship rung, and seeded random trit lanes
    (i == j chains, methods 0-5, adder/carry sizes unset and set, a padding
    lane, K = 16 classes at P = 512, 1024 and 2048, the last too large for
@@ -133,30 +140,67 @@ def k2_ptxas(log: str) -> dict[tuple[int, bool], tuple[int, int]]:
     return out
 
 
-def check_corpus(torch, DaisExecutor, cuda_backend, run_program) -> None:
+def k1_ptxas(log: str) -> dict[tuple[int, bool], dict[str, int]]:
+    """ptxas' registers, spill stores and loads and stack frame of each K1
+    instantiation, keyed by (itemsize, global-memory buffer)."""
+    out, key, info = {}, None, {}
+    for line in log.splitlines():
+        if m := re.search(r'dais_exec_kernelI([il])Lb([01])E', line):
+            key, info = (4 if m[1] == 'i' else 8, m[2] == '1'), {}
+        elif (m := re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads', line)) and key:
+            info = {'stack': int(m[1]), 'spill_stores': int(m[2]), 'spill_loads': int(m[3])}
+        elif (m := re.search(r'Used (\d+) registers', line)) and key:
+            out[key], key = {'registers': int(m[1]), **info}, None
+    return out
+
+
+def k1_shape(torch, ex, ptxas) -> tuple[str, dict]:
+    """K1's launch shape for one program on card 0, as one line and a dict:
+    slots, phases, tiles per block, warps per tile (G), record bytes, resident
+    warps per SM (the occupancy API), buffer path, ptxas' report of the
+    instantiation it runs."""
+    card = torch.device('cuda', 0)
+    k = ex.kernel
+    g = k.geometry(card)
+    path = f'global scratch, {g.scratch_rows} rows a launch' if g.scratch_rows else 'shared memory'
+    shape = {'slots': k.n_slots, 'phases': len(k.phases), 'tiles': g.tiles, 'warps': g.warps,
+             'record_bytes': k.records.dtype.itemsize, 'resident_warps': k.occupancy(card), 'smem': g.smem,
+             'global': g.scratch_rows is not None, **ptxas[k.itemsize, g.scratch_rows is not None]}  # fmt: skip
+    line = (f"{k.n_ops} ops, {ex.dtype}, {shape['slots']} slots, {shape['phases']} phases, {g.tiles} tiles x "
+            f"{g.warps} warps a block, {shape['record_bytes']}-byte records, {g.smem} B shared memory a block, "
+            f"{shape['resident_warps']} resident warps per SM (occupancy API), {path}; ptxas {shape['registers']} "
+            f"registers, {shape['spill_stores']}/{shape['spill_loads']} B spill stores/loads")  # fmt: skip
+    return line, shape
+
+
+def check_corpus(torch, DaisExecutor, cuda_backend, run_program, ptxas) -> None:
     from da4ml_tpu_torch.ir.synth import FAMILIES, random_inputs, random_program
 
     rng = np.random.default_rng(20261016)
     corpus = [(f'family {f}', random_program(rng, n_ops=160, n_in=5, n_out=4, families=(f,))) for f in FAMILIES]
     corpus += [(f'mixed {k}', random_program(rng, n_ops=400, n_in=8, n_out=6)) for k in range(2)]
     corpus += [(f'wide {k}', random_program(rng, n_ops=400, n_in=8, n_out=6, wide=True)) for k in range(3)]
-    # 90 int32 slots: a 46080-byte buffer at 128 threads, just under 48 KB,
-    # which launches only with the shared-memory opt-in
-    corpus.append(('smem 48K', random_program(np.random.default_rng(1), n_ops=340, n_in=8, n_out=6, n_levels=4)))
-    # 1029 int64 slots: too wide for shared memory even at 32 samples, so the
-    # kernel keeps its buffer in global memory, in chunks
+    # 482 int32 slots: a block of 67568 bytes of shared memory, over 48 KB,
+    # which launches only with the dynamic-size opt-in
+    corpus.append(('smem over 48K', random_program(np.random.default_rng(1), n_ops=1500, n_in=8, n_out=6, n_levels=5)))
+    # phases of at most 2 ops: one warp a tile, two tiles a block, each warp on
+    # its own named barrier
+    corpus.append(('two tiles a block', random_program(np.random.default_rng(0), n_ops=20, n_in=2, n_out=2,
+                                                       n_levels=18)))  # fmt: skip
+    # about a thousand int64 slots: a tile too wide for shared memory, so the
+    # kernel keeps its buffers in global memory, in chunks
     corpus.append(('global scratch', random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6,
                                                     n_levels=3, wide=True)))  # fmt: skip
     assert sum(ex_prog.max_width + 2 > 31 for _, ex_prog in corpus) >= 2, 'corpus must hold two wide int64 programs'
-    card = torch.device('cuda', 0)
     n_checked = 0
     for name, prog in corpus:
         ex = DaisExecutor(prog, device='cuda')
-        threads, rows = ex.kernel.geometry(card)
-        if name == 'smem 48K':
-            smem = ex.kernel.n_slots * threads * ex.kernel.itemsize
-            assert ex.dtype == torch.int32 and 48 * 1024 - 4096 < smem <= 48 * 1024 and rows is None, (smem, rows)
-        assert (rows is not None) == (name == 'global scratch'), f'corpus {name}: {ex.kernel.n_slots} slots, rows {rows}'
+        line, shape = k1_shape(torch, ex, ptxas)
+        if name == 'smem over 48K':
+            assert ex.dtype == torch.int32 and shape['smem'] > 48 * 1024 and not shape['global'], shape
+        assert shape['global'] == (name == 'global scratch'), f'corpus {name}: {shape}'
+        assert (shape['tiles'] > 1) == (name == 'two tiles a block'), f'corpus {name}: {shape}'
+        assert shape['resident_warps'] > 0, f'corpus {name}: the kernel cannot launch ({shape})'
         for batch in CORPUS_BATCHES:
             data = random_inputs(rng, prog, batch)
             x = ex.int_inputs(data)
@@ -171,14 +215,48 @@ def check_corpus(torch, DaisExecutor, cuda_backend, run_program) -> None:
                 if not np.array_equal(got, run_program(prog, data)):
                     raise AssertionError(f'corpus {name}: kernel disagrees with the reference interpreter')
             n_checked += 1
-        path = f'global scratch, {rows} rows per chunk' if rows else 'shared memory'
-        print(f'corpus {name}: {prog.n_ops} ops, {ex.dtype}, {ex.kernel.n_slots} slots, threads {threads}, {path}: equal',
-              flush=True)  # fmt: skip
+        print(f'corpus {name}: {line}: equal', flush=True)
     assert cuda_backend.scratch_launches > 0, 'no corpus program took the global-memory path'
     print(f'corpus: {n_checked} (program, batch) cases bit-exact; scratch launches {cuda_backend.scratch_launches}')
 
 
-def run_dais_flagship(torch, prog, card: str) -> dict:
+#: K1's phase sizes and warps per tile timed beside the kept pair
+#: (``cuda_backend.PHASE_OPS``, ``MAX_WARPS``): a phase per level, shorter
+#: phases, fewer and more warps
+K1_ALTERNATIVES = ((10**9, 6), (64, 6), (128, 6), (192, 4), (192, 8))
+
+
+def k1_scheme_scan(torch, prog, x, y_plain, ptxas, card: str) -> None:
+    """K1 on the flagship with the host's phase size (``PHASE_OPS``) and
+    warps per tile (``MAX_WARPS``) at the kept pair and each of
+    ``K1_ALTERNATIVES``: the same kernel build, other phases, slots and launch
+    shape. Each must equal the plain version; prints slots, phases, the
+    launch shape and ms, in turns (each pair timed twice, the order reversed
+    the second time)."""
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+
+    schemes = ((cuda_backend.PHASE_OPS, cuda_backend.MAX_WARPS), *K1_ALTERNATIVES)
+    runs = {}
+    for phase_ops, warps in schemes:
+        consts = {(cuda_backend, 'PHASE_OPS'): lambda _, v=phase_ops: v, (cuda_backend, 'MAX_WARPS'): lambda _, v=warps: v}
+        with Patched(consts):
+            ex = DaisExecutor(prog)
+            assert torch.equal(ex.kernel.launch(x), y_plain), f'K1 with {phase_ops}-op phases, {warps} warps'
+            runs[phase_ops, warps] = (ex, consts, k1_shape(torch, ex, ptxas)[1], [])
+    for order in (schemes, schemes[::-1]):
+        for key in order:
+            ex, consts, _, times = runs[key]
+            with Patched(consts):
+                times.append(cuda_ms(lambda: ex.kernel.launch(x), reps=10))
+    for (phase_ops, warps), (ex, _, shape, times) in runs.items():
+        label = 'a phase per level' if phase_ops >= 10**9 else f'phases of at most {phase_ops} ops'
+        print(f"[{card}] K1 scheme, {label}, {warps} warps a tile: {shape['slots']} slots, {shape['phases']} phases, "
+              f"{shape['tiles']} x {shape['warps']} warps a block, {shape['resident_warps']} resident warps per SM: "
+              f"{', '.join(f'{t:.4f}' for t in times)} ms, equal")  # fmt: skip
+
+
+def run_dais_flagship(torch, prog, card: str, ptxas) -> dict:
     """K1's main path: the flagship program on 2^20 samples, checked and timed."""
     from da4ml_tpu_torch.entry import entry
     from da4ml_tpu_torch.runtime import cuda_backend
@@ -232,19 +310,24 @@ def run_dais_flagship(torch, prog, card: str) -> dict:
           f'float->int {t1 - t0:.4f} s, H2D {t2 - t1:.4f} s, kernel {t3 - t2:.4f} s, D2H {t4 - t3:.4f} s, '
           f'int->float {t5 - t4:.4f} s')  # fmt: skip
 
+    line, shape = k1_shape(torch, ex, ptxas)
+    print(f'[{card}] flagship dais_exec: {line}')
+    assert shape['resident_warps'] >= 24, f'flagship: {shape["resident_warps"]} resident warps per SM, want 24'
+    compact = {cuda_backend.LOWERINGS[f] for f in cuda_backend.COMPACT}
+    assert shape['record_bytes'] <= 16 and set(ex.kernel.fam.tolist()) <= compact, 'flagship records need the pool'
     ms = cuda_ms(lambda: ex.fn_int(x), reps=20)
     plain_ms = cuda_ms(lambda: ex.plain(x), reps=5)
     n_bytes, int_ops = ex.kernel.work(FLAGSHIP_SAMPLES)
     bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, int_ops / INT32_OPS_PER_S * 1e3
     bound_ms, bound_by = (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
     smem_ms = 3 * prog.n_ops * FLAGSHIP_SAMPLES * ex.kernel.itemsize / SMEM_BYTES_PER_S * 1e3
-    threads = ex.kernel.geometry(x.device)[0]
     print(f'[{card}] dais_exec: {ms:.4f} ms for {FLAGSHIP_SAMPLES} samples ({FLAGSHIP_SAMPLES / ms * 1e3:.4g} samples/s), '
-          f'{prog.n_ops} ops, {ex.kernel.n_slots} slots, {threads} threads/block')  # fmt: skip
+          f'{prog.n_ops} ops, {ex.kernel.n_slots} slots, {len(ex.kernel.phases)} phases')  # fmt: skip
     print(f'[{card}] plain level version: {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} '
           f'(int ALU {ops_ms:.4f} ms for {ex.kernel.int_ops_per_sample} operations per sample, HBM {bytes_ms:.4f} ms; '
           f'shared-memory traffic {smem_ms:.4f} ms)')  # fmt: skip
     print(f'[{card}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
+    k1_scheme_scan(torch, prog, x, y_plain, ptxas, card)
     return {
         'name': 'dais_exec',
         'route': 'cuda',
@@ -565,6 +648,11 @@ def main() -> int:
     for name, log in (('dais_exec', cuda_backend.build_log), ('fused_cse', fused_cse.build_log)):
         print(f'build {name}: {builds[name]:.3f} s (nvcc, sm_90a)')
         print_ptxas(log)
+    k1_regs = k1_ptxas(cuda_backend.build_log)
+    assert len(k1_regs) == 4, f'ptxas reported K1 instantiations {sorted(k1_regs)}'
+    for (itemsize, glob), info in sorted(k1_regs.items()):
+        print(f'K1 int{8 * itemsize} {"global" if glob else "shared"}-memory instantiation: {info}')
+        assert glob or info['spill_stores'] == info['spill_loads'] == 0, f'K1 int{8 * itemsize} spills: {info}'
     print(f"build fused_cse phases: {builds['fused_cse phases']:.3f} s (nvcc, sm_90a, -DFUSED_CSE_PHASES)")
     k2_regs = k2_ptxas(fused_cse.build_log)
     assert len(k2_regs) == 2 * len(fused_cse.CACHE_DEPTHS), f'ptxas reported K2 instantiations {sorted(k2_regs)}'
@@ -574,7 +662,7 @@ def main() -> int:
     print(f'solve: {solve_s:.3f} s host CMVM ({os.cpu_count()} workers); cost {comb.cost}', flush=True)
 
     # phase 3: K1 corpus, kernel vs plain version on the card
-    check_corpus(torch, DaisExecutor, cuda_backend, run_program)
+    check_corpus(torch, DaisExecutor, cuda_backend, run_program, k1_regs)
 
     # phase 4: K2's main path — the flagship through the device search, its
     # wall time on the host clock with no stage timer inside
@@ -618,7 +706,7 @@ def main() -> int:
           flush=True)  # fmt: skip
 
     # phase 5: K1's main path at 2^20 samples, on the device-solved program
-    dais = run_dais_flagship(torch, prog, card)
+    dais = run_dais_flagship(torch, prog, card, k1_regs)
 
     # phase 6: K2 corpus — the flagship's rungs (timed, phases of each) and
     # random trit lanes

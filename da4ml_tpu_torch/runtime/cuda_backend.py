@@ -1,5 +1,5 @@
 """The hand-written CUDA kernel that executes DAIS programs — wrapper, build
-and host-side op records.
+and host-side program data.
 
 ``csrc/dais_exec.cu`` replaces ``da4ml_tpu/runtime/pallas_backend.py::
 build_pallas_fn`` (the TPU's Pallas mega-kernel). It is one table-driven
@@ -9,15 +9,24 @@ program is data, not code. This module turns a :class:`DaisExecutor`'s
 program into that data:
 
 - the packed order is ``levelize_program(prog, sort_key=family)``, the order
-  ``build_pallas_fn`` walks;
-- buffer slots are assigned by operand liveness — a linear scan over the
-  packed order that frees a slot after its last reader; ops named by
-  ``out_idxs`` stay live to the end — so the on-chip buffer holds about the
-  program's ``peak_live`` slots instead of one slot per op;
-- each op becomes a 64-byte record (family id and the ops left in its
-  (level, family) group, operand slots, width/signed, pow2 multipliers,
-  clamped right shifts, constants, LUT offsets) built from ``op_meta``, with
-  the same constants the plain ``level`` version uses.
+  ``build_pallas_fn`` walks; it is cut into phases: each level, split into
+  near-equal chunks of at most ``PHASE_OPS`` ops (``phase_bounds``). The
+  kernel deals a phase's ops out among the warps of a sample tile and
+  separates phases by a barrier of those warps;
+- buffer slots are assigned by operand liveness at phase granularity
+  (``assign_slots``): a slot is freed only at the barrier after the phase of
+  its value's last reader, so no op writes a slot in the phase in which
+  another warp may still read its old value; ops named by ``out_idxs`` stay
+  live to the end;
+- each op becomes a 16-byte record (``REC_DTYPES``): three 16-bit slot ids, a
+  16-bit control word and a multiplier in the executor's width. The four
+  families that need nothing else (``COMPACT``: copy, addsub, relu,
+  quantize) are executed from the record alone; the other seven read their
+  constants from a pool (``EXT_DTYPES``, one entry per record) in global
+  memory. The constants are the plain ``level`` version's;
+- per phase, its record range and its (family) groups (``phase_tables``),
+  and the record stream the kernel copies a phase at a time: per phase a
+  16-byte header, its group words and its records (``phase_stream``).
 
 What bounds the kernel on an H100, and what the design does about it, is in
 the source's header note.
@@ -40,13 +49,13 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ..ir.optable import OP_TABLE
 from ..ir.schedule import operand_edges
-from .torch_backend import level_groups
 
 SOURCE = Path(__file__).resolve().parents[1] / 'csrc' / 'dais_exec.cu'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'da4ml_tpu_torch'
@@ -67,12 +76,77 @@ LOWERINGS: dict[str, int] = {
     'bit_unary': 9,
     'bit_binary': 10,
 }
+#: families whose 16-byte record holds all they need; the others read their
+#: constants from the pool
+COMPACT = ('copy', 'addsub', 'relu', 'quantize')
+
+#: samples of a tile: the lanes of a warp
+TILE = 32
+#: consecutive ops one warp evaluates together (``kUnroll``): their loads
+#: overlap; 2 measured faster than 4 on the H100 (fewer padding records, and
+#: 8 spills)
+UNROLL = 2
+#: record buffers of a tile's stage (``kStages``): phase p + kStages is
+#: copied in while the next phases run
+STAGES = 2
+#: threads of a block at most (``kMaxThreads``): tiles x warps x 32
+MAX_THREADS = 256
+#: warps that share a tile at most (G): fewer warps a tile repeat less of a
+#: phase's fixed work, more hide more latency; 6 measured fastest on the H100
+#: among the counts that keep 24 warps resident on the flagship
+MAX_WARPS = 6
+#: tiles of a block at most (``kMaxTiles``): tile t meets on named barrier
+#: 1 + t, and ptxas reserves every barrier id the source names
+MAX_TILES = 4
+#: 16-byte units of a phase's block in the stream beside its records at
+#: most: the header, up to one group word per family, and each group's
+#: padding to a multiple of ``UNROLL``
+STAGE_EXTRA = 4 + len(LOWERINGS) * (UNROLL - 1)
+#: most ops of one phase: a level wider than this is split into phases, so a
+#: tile's record stage stays small. Longer phases take fewer barriers but
+#: hold more slots: 192 measured fastest on the H100 among the sizes that
+#: keep 24 warps resident on the flagship (64, 96, 128, 160, 192)
+PHASE_OPS = 192
+
+#: the 16-byte op record per executor width. ``dst``, ``a``, ``b``: slots (a
+#: copy's ``a`` is its input column); ``ctl``: for ``COMPACT`` families the
+#: right shift (bits 0-5), wrap width (bits 6-12), signed (bit 13) and negate
+#: (bit 14), for the others the third operand's slot; ``k``: the multiplier
+#: (int32 records also carry the sign, +1 or -1, as ``s``; int64 records
+#: take it from the negate bit)
+REC_DTYPES = {
+    32: np.dtype([('dst', '<u2'), ('a', '<u2'), ('ctl', '<u2'), ('b', '<u2'), ('k', '<i4'), ('s', '<i4')]),
+    64: np.dtype([('dst', '<u2'), ('a', '<u2'), ('ctl', '<u2'), ('b', '<u2'), ('k', '<i8')]),
+}
+#: the constant pool's entry per record (``Ext<T>`` in the source)
+EXT_DTYPES = {
+    bits: np.dtype([('k0', t), ('k1', t), ('k2', t), ('k3', t), ('aux', '<i4'), ('w', '<i4'), ('sg', '<i4'),
+                    ('pad', '<i4')])
+    for bits, t in ((32, '<i4'), (64, '<i8'))
+}  # fmt: skip
+assert all(d.itemsize == 16 for d in REC_DTYPES.values()), 'records are 16 bytes in csrc/dais_exec.cu'
+
+#: the op fields of the level lowering, one row per op: the constants both
+#: the compact records and the pool are packed from
+WIDE_DTYPE = np.dtype(
+    [('fam', '<i8'), ('dst', '<i8'), ('a', '<i8'), ('b', '<i8'), ('c', '<i8'), ('w', '<i8'), ('sg', '<i8'),
+     ('aux', '<i8'), ('k0', '<i8'), ('k1', '<i8'), ('k2', '<i8'), ('k3', '<i8')]
+)  # fmt: skip
+
+#: global-memory scratch budget of the chunked path for programs too wide
+#: for shared memory
+SCRATCH_BYTES = 256 << 20
+#: the largest tile buffer kept in shared memory: its records address slots
+#: by 16-bit byte offsets (``slot_unit``)
+TILE_BYTES_ON_CHIP = 1 << 16
+
 
 def _audit() -> None:
     """Two-way audit of the opcode table's ``lower`` column against the
     kernel's family switch: every row names a family of the switch, every
     family of the switch is named by a row, and the ids agree with the
-    source's enum and ``case`` labels."""
+    source's enum and ``case`` labels. The source's constants agree with
+    this module's."""
     named = {spec.lower for spec in OP_TABLE}
     if named != set(LOWERINGS):
         raise RuntimeError(
@@ -83,27 +157,12 @@ def _audit() -> None:
     cases = set(re.findall(r'case\s+FAM_(\w+)\s*:', src))
     if enum != LOWERINGS or cases != set(LOWERINGS):
         raise RuntimeError(f'{SOURCE.name} family switch {enum} / cases {sorted(cases)} disagree with {LOWERINGS}')
-    for const, val in (('kChunk', RECORD_CHUNK), ('kUnroll', UNROLL)):
+    consts = (('kTile', TILE), ('kUnroll', UNROLL), ('kStages', STAGES), ('kMaxThreads', MAX_THREADS),
+              ('kMaxTiles', MAX_TILES))
+    for const, val in consts:
         if f'constexpr int32_t {const} = {val};' not in src:
             raise RuntimeError(f'{SOURCE.name}: {const} disagrees with {val}')
 
-
-REC_DTYPE = np.dtype(
-    [('fam', '<i4'), ('dst', '<i4'), ('a', '<i4'), ('b', '<i4'), ('c', '<i4'), ('w', '<i4'), ('sg', '<i4'),
-     ('aux', '<i4'), ('k0', '<i8'), ('k1', '<i8'), ('k2', '<i8'), ('k3', '<i8')]
-)  # fmt: skip
-assert REC_DTYPE.itemsize == 64, 'OpRec is 64 bytes in csrc/dais_exec.cu'
-
-#: op records the kernel stages through shared memory at a time (``kChunk``
-#: in the source): a static 4 KB of shared memory per block beside the buffer
-RECORD_CHUNK = 64
-#: ops of one (level, family) group the kernel evaluates together
-#: (``kUnroll``): all read their operands before any writes its result
-UNROLL = 4
-
-#: global-memory scratch budget of the chunked path for programs too wide
-#: for shared memory
-SCRATCH_BYTES = 256 << 20
 
 _audit()
 
@@ -180,13 +239,13 @@ def load_library(build_fn, declare) -> ctypes.CDLL:
 
 
 def _declare(lib) -> None:
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    for name in ('dais_exec_i32', 'dais_exec_i64'):
-        fn = getattr(lib, name)
-        fn.restype = ci
-        fn.argtypes = [ci, vp, ci, vp, ci, vp, ci, vp, vp, ctypes.c_longlong, ci, ci, vp, vp]
+    vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
+    lib.dais_exec_launch.restype = ci
+    lib.dais_exec_launch.argtypes = [ci, ci] + [vp] * 8 + [ctypes.c_longlong] + [ci] * 7 + [vp]
+    lib.dais_exec_occupancy.restype = ci
+    lib.dais_exec_occupancy.argtypes = [ci] * 5 + [pi]
     lib.dais_device_smem.restype = ci
-    lib.dais_device_smem.argtypes = [ci] + [ctypes.POINTER(ci)] * 3
+    lib.dais_device_smem.argtypes = [ci] + [pi] * 3
     lib.dais_error_string.restype = ctypes.c_char_p
     lib.dais_error_string.argtypes = [ci]
 
@@ -219,52 +278,65 @@ def device_smem(device: torch.device) -> tuple[int, int, int]:
 # ---------------------------------------------------------------------------
 
 
-def assign_slots(prog, order: np.ndarray) -> tuple[np.ndarray, int]:
-    """Buffer slot of every op by operand liveness over the packed ``order``.
+def phase_bounds(schedule, max_ops: int) -> list[tuple[int, int]]:
+    """The kernel's phases as ``(start, end)`` positions of the packed order:
+    each level, split into the fewest near-equal chunks of at most
+    ``max_ops`` ops. A phase never straddles two levels, so no op reads a
+    value written in its own phase."""
+    out = []
+    starts = [int(v) for v in schedule.starts]
+    for s, e in zip(starts[:-1], starts[1:]):
+        k = -(-(e - s) // max_ops)
+        cuts = [s + (e - s) * i // k for i in range(k + 1)]
+        out += list(zip(cuts[:-1], cuts[1:]))
+    return out
 
-    A slot is freed at the packed position of its op's last reader (before
-    that op's result is placed, which is safe: a thread reads its operands
-    before it writes); ops that no op reads and no output names are freed
-    right after they are written. Returns ``(slot per op, n_slots)``.
+
+def assign_slots(prog, order: np.ndarray, phases: list[tuple[int, int]]) -> tuple[np.ndarray, int]:
+    """Buffer slot of every op by operand liveness over the ``phases`` of
+    the packed ``order``.
+
+    The warps of a tile run a phase's ops in no fixed order, so a value's
+    slot is freed only at the barrier after the phase of its last reader,
+    and taken again no earlier than the next phase; a value nothing reads
+    holds its slot to the end of its own phase, and the values ``out_idxs``
+    names to the end of the program. Returns ``(slot per op, n_slots)``.
     """
     n = prog.n_ops
     order = np.asarray(order, dtype=np.int64)
+    phase_of = np.zeros(n, dtype=np.int64)  # by packed position
+    for p, (s, e) in enumerate(phases):
+        phase_of[s:e] = p
     pos = np.empty(n, dtype=np.int64)
     pos[order] = np.arange(n, dtype=np.int64)
     readers, operands = operand_edges(prog.opcode, prog.id0, prog.id1, prog.data_lo)
-    last = np.full(n, -1, dtype=np.int64)
+    last = phase_of[pos]  # the phase to the end of which each op's slot is held
     if len(operands):
-        np.maximum.at(last, operands, pos[readers])
-    outs = prog.out_idxs[prog.out_idxs >= 0].astype(np.int64)
-    last[outs] = n  # outputs stay live to the end
+        np.maximum.at(last, operands, phase_of[pos[readers]])
+    last[prog.out_idxs[prog.out_idxs >= 0].astype(np.int64)] = len(phases)
 
-    release: list[list[int]] = [[] for _ in range(n)]
-    for j in np.flatnonzero((last >= 0) & (last < n)).tolist():
-        release[int(last[j])].append(j)
+    release: list[list[int]] = [[] for _ in range(len(phases) + 1)]
+    for j, p in enumerate(last.tolist()):
+        release[p].append(j)
     slot = np.zeros(n, dtype=np.int64)
     free: list[int] = []
     n_slots = 0
-    last_l = last.tolist()
-    for p, i in enumerate(order.tolist()):
-        for j in release[p]:
-            free.append(int(slot[j]))
-        if free:
-            s = free.pop()
-        else:
-            s, n_slots = n_slots, n_slots + 1
-        slot[i] = s
-        if last_l[i] < 0:  # dead op: nothing reads it
-            free.append(s)
+    for p, (s, e) in enumerate(phases):
+        for i in order[s:e].tolist():
+            if free:
+                slot[i] = free.pop()
+            else:
+                slot[i], n_slots = n_slots, n_slots + 1
+        free += [int(slot[j]) for j in release[p]]
     return slot, max(n_slots, 1)
 
 
-def op_records(ex, slot: np.ndarray) -> np.ndarray:
-    """The kernel's op records (``REC_DTYPE``) in packed order.
-
-    Constants are the level lowering's, cast to the executor's dtype the way
-    numpy casts them there (pow2 multipliers wrap at the top bit); right
-    shifts are clamped to ``bits - 1``.
-    """
+def wide_records(ex, slot: np.ndarray) -> np.ndarray:
+    """Every op's fields (``WIDE_DTYPE``) in packed order, with the plain
+    version's constants cast to the executor's dtype the way numpy casts them
+    there: a pow2 multiplier for a shift of ``bits`` or more wraps to 0, and
+    ``2**(bits - 1)`` to the most negative value; right shifts are clamped to
+    ``bits - 1``; signs fold into the multipliers."""
     prog, m = ex.prog, ex.meta
     n = prog.n_ops
     bits = 64 if ex.use_i64 else 32
@@ -288,7 +360,7 @@ def op_records(ex, slot: np.ndarray) -> np.ndarray:
         return m[name].astype(np.int64)
 
     fam = np.array([LOWERINGS[OP_TABLE[b].lower] for b in m['branch'].tolist()], dtype=np.int64)
-    rec = np.zeros(n, dtype=REC_DTYPE)
+    rec = np.zeros(n, dtype=WIDE_DTYPE)
     rec['fam'] = fam
     rec['dst'] = slot
     rec['a'] = np.where(fam == LOWERINGS['copy'], i64('id0'), safe(m['id0']))
@@ -327,18 +399,118 @@ def op_records(ex, slot: np.ndarray) -> np.ndarray:
     )  # fmt: skip
     for name, col in (('k0', k0), ('k1', k1), ('k2', k2), ('k3', k3), ('aux', aux)):
         rec[name] = col
-    rec = rec[ex.schedule.order.astype(np.int64)]
-    # above the family id: the ops left in the op's (level, family) group
-    left = np.zeros(n, dtype=np.int64)
-    for s, e in level_groups(ex.schedule, m['branch'].astype(np.int64)):
-        left[s:e] = np.arange(e - s, 0, -1)
-    rec['fam'] |= left << 8
-    return rec
+    return rec[ex.schedule.order.astype(np.int64)]
 
 
-def record_ops(rec: np.ndarray, bits: int) -> np.ndarray:
+def slot_unit(n_slots: int, itemsize: int) -> int:
+    """What a record's slot field counts in: bytes (``TILE x itemsize`` a
+    slot, the byte offset of the slot in a sample's column) when the tile's
+    buffer fits ``TILE_BYTES_ON_CHIP`` and lives in shared memory, else slots
+    (the global-memory path)."""
+    return TILE * itemsize if n_slots * TILE * itemsize <= TILE_BYTES_ON_CHIP else 1
+
+
+def pack_records(wide: np.ndarray, bits: int, unit: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """``(records, pool)``: the 16-byte records (``REC_DTYPES[bits]``) and
+    the constant pool (``EXT_DTYPES[bits]``, one entry per record) of
+    ``wide_records``' rows, their slot fields in ``unit`` (``slot_unit``).
+
+    An addsub is ``(x * k + y * s) >> r`` with ``s`` = +1 or -1: the host
+    puts the operand whose pow2 multiplier is not 1 first (for a left shift
+    of the second operand, the two swap), so one multiplier in the
+    executor's width suffices. A relu or quantize is ``wrap((x * s) * k >>
+    r)``, the relu's sign test on ``x * s``. The wrap width is clamped to
+    ``[0, bits]``, which keeps its meaning (no wrap at ``bits`` or more; the
+    constant ``-sg`` at 0 or less). Raises when a slot or input column does
+    not fit 16 bits.
+    """
+    fam = wide['fam']
+    n = len(wide)
+    rec = np.zeros(n, dtype=REC_DTYPES[bits])
+    ext = np.zeros(n, dtype=EXT_DTYPES[bits])
+    is_fam = {name: fam == LOWERINGS[name] for name in LOWERINGS}
+    wide = wide.copy()
+    for name in ('dst', 'a', 'b', 'c'):
+        if name != 'a':
+            wide[name] *= unit
+        else:  # a copy's first operand is an input column
+            wide[name] = np.where(is_fam['copy'], wide[name], wide[name] * unit)
+        if n and (wide[name].min() < 0 or wide[name].max() > 0xFFFF):
+            raise ValueError(f'DAIS kernel: field {name} ({wide[name].max()}) does not fit the 16-bit record')
+    addsub = is_fam['addsub']
+    swap = addsub & (wide['k1'] != 1) & (wide['k1'] != -1)
+    if (swap & (wide['k0'] != 1)).any():
+        raise ValueError('DAIS kernel: an addsub scales both operands')
+    rec['dst'] = wide['dst']
+    rec['a'] = np.where(swap, wide['b'], wide['a'])
+    rec['b'] = np.where(swap, wide['a'], wide['b'])
+    k = np.where(swap, wide['k1'], np.where(addsub, wide['k0'], wide['k1']))
+    s = np.where(swap, 1, np.where(addsub, wide['k1'], wide['k0']))
+    compact = np.isin(fam, [LOWERINGS[f] for f in COMPACT])
+    s = np.where(compact & ~is_fam['copy'], s, 1)
+    k = np.where(compact & ~is_fam['copy'], k, 0)
+    ctl = (wide['aux'] & 63) | (np.clip(wide['w'], 0, bits) << 6) | ((wide['sg'] != 0) << 13) | ((s == -1) << 14)
+    rec['ctl'] = np.where(compact, ctl, wide['c'])
+    rec['k'] = k
+    if bits == 32:
+        rec['s'] = s
+    for name in ('k0', 'k1', 'k2', 'k3', 'aux', 'w', 'sg'):
+        ext[name] = np.where(compact, 0, wide[name])
+    return rec, ext
+
+
+def phase_tables(phases: list[tuple[int, int]], fam: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """``(phase table, group table)`` of the kernel: per phase ``(first
+    record, records, first group, groups)`` (int32, 4 a phase), and per group
+    — a run of one family inside a phase — ``family | start << 8 | length
+    << 20``, start relative to its phase. ``fam`` is the family of each
+    record, in packed order."""
+    table, groups = [], []
+    for s, e in phases:
+        cuts = [s, *(s + 1 + np.flatnonzero(np.diff(fam[s:e]))).tolist(), e]
+        table.append((s, e - s, len(groups), len(cuts) - 1))
+        groups += [int(fam[a]) | (a - s) << 8 | (b - a) << 20 for a, b in zip(cuts[:-1], cuts[1:])]
+    return np.array(table, np.int32).reshape(-1, 4), np.array(groups, np.int32)
+
+
+def phase_stream(table: np.ndarray, groups: np.ndarray, rec: np.ndarray, ext: np.ndarray):
+    """``(stream, offsets, pool)``: what the kernel copies, one phase at a
+    time, as 16-byte units (uint32, 4 a unit); per phase the first unit and
+    the units of its block; and the constant pool in the stream's record
+    order. A phase's block is a header (groups, the index of its first record
+    in the pool, and the first unit and units of the block ``STAGES`` phases
+    on, which the kernel copies next into the same buffer), its group words
+    (family | start << 8 | length << 20) padded to whole units, then its
+    records. Each group is padded to a multiple of ``UNROLL`` records by
+    repeating its last record, which computes and stores the same value
+    again."""
+    words = rec.view(np.uint32).reshape(-1, 4)
+    blocks, offsets, pools, at, r_at = [], [], [], 0, 0
+    for r0, n, g0, ng in table.tolist():
+        idx, gw = [], []
+        for g in groups[g0 : g0 + ng].tolist():
+            start, length = r0 + ((g >> 8) & 0xFFF), g >> 20
+            padded = -(-length // UNROLL) * UNROLL
+            gw.append((g & 0xFF) | len(idx) << 8 | padded << 20)
+            idx += list(range(start, start + length)) + [start + length - 1] * (padded - length)
+        head = np.zeros((1 + -(-ng // 4), 4), np.uint32)
+        head[0, :2] = ng, r_at
+        head.reshape(-1)[4 : 4 + ng] = np.array(gw, np.int64).astype(np.uint32)
+        blocks += [head, words[idx]]
+        pools.append(ext[idx])
+        offsets.append((at, len(head) + len(idx)))
+        at, r_at = at + len(head) + len(idx), r_at + len(idx)
+    for p in range(len(offsets) - STAGES):
+        blocks[2 * p][0, 2:] = offsets[p + STAGES]
+    stream = np.concatenate(blocks) if blocks else np.zeros((0, 4), np.uint32)
+    pool = np.concatenate(pools) if pools else ext[:0]
+    return stream, np.array(offsets, np.int32).reshape(-1, 2), pool
+
+
+def record_ops(fam: np.ndarray, rec: np.ndarray, ext: np.ndarray, bits: int) -> np.ndarray:
     """The fewest integer ALU instructions each op record needs per sample —
-    the operation count of the kernel's bound.
+    the operation count of the kernel's bound. ``fam`` is each record's
+    family; ``rec`` and ``ext`` are ``pack_records``' output.
 
     Only what the record's constants make non-trivial counts: a pow2
     multiplier of 1 is no shift, a sign of +1 no negation, a right shift of 0
@@ -347,25 +519,31 @@ def record_ops(rec: np.ndarray, bits: int) -> np.ndarray:
     nothing at full width; a compare and its select count as two. Loads and
     stores are not counted.
     """
-    fam = rec['fam'].astype(np.int64) & 0xFF
-    w, sg, aux = (rec[f].astype(np.int64) for f in ('w', 'sg', 'aux'))
-    k0, k1, k2, k3 = (rec[f] for f in ('k0', 'k1', 'k2', 'k3'))
+    fam = np.asarray(fam, np.int64)
+    ctl = rec['ctl'].astype(np.int64)
+    compact = np.isin(fam, [LOWERINGS[f] for f in COMPACT])
+    r = np.where(compact, ctl & 63, ext['aux'].astype(np.int64))
+    neg = (ctl >> 14) & 1
+    w = np.where(compact, (ctl >> 6) & 127, ext['w'].astype(np.int64))
+    sg = np.where(compact, (ctl >> 13) & 1, ext['sg'].astype(np.int64))
+    k = rec['k'].astype(np.int64)
+    k0, k1, k2, k3 = (ext[f].astype(np.int64) for f in ('k0', 'k1', 'k2', 'k3'))
     wrap = np.where((w >= bits) | (w <= 0), 0, np.where(sg != 0, 2, 1))
-    scaled = ((k0 != 1) | (k1 != 1)).astype(np.int64)  # (-x) << l, one IMAD
-    mux0 = wrap + (k1 != 1) + ((aux & 0xFF) > 0)
-    mux1 = wrap + ((k0 != 1) | (k2 != 1)) + (((aux >> 8) & 0xFF) > 0)
-    apos = (aux & 1) != 0
+    scaled = ((neg != 0) | (k != 1)).astype(np.int64)  # (-x) << l, one IMAD
+    mux0 = wrap + (k1 != 1) + ((r & 0xFF) > 0)
+    mux1 = wrap + ((k0 != 1) | (k2 != 1)) + (((r >> 8) & 0xFF) > 0)
+    apos = (r & 1) != 0
     counts = {
         'copy': wrap,
-        'addsub': 1 + (aux > 0),
-        'relu': scaled + (aux > 0) + wrap + 2,
-        'quantize': scaled + (aux > 0) + wrap,
-        'const_add': 1 + (aux > 0),
+        'addsub': 1 + (r > 0),
+        'relu': scaled + (r > 0) + wrap + 2,
+        'quantize': scaled + (r > 0) + wrap,
+        'const_add': 1 + (r > 0),
         'const': 0,
         'msb_mux': 2 + mux0 + mux1,
         'mul': 1,
         'lookup': (k0 != 0) + 2,
-        'bit_unary': (k0 != 1) + np.where(aux == 2, 2, 1),
+        'bit_unary': (k0 != 1) + np.where(r == 2, 2, 1),
         'bit_binary': 1 + ((k0 != 1) | (~apos & (k3 != 1))) + ((k1 != 1) | (apos & (k2 != 1))),
     }
     ops = np.zeros(len(rec), dtype=np.int64)
@@ -375,28 +553,66 @@ def record_ops(rec: np.ndarray, bits: int) -> np.ndarray:
     return ops
 
 
-def launch_geometry(n_slots: int, itemsize: int, smem: tuple[int, int, int]) -> tuple[int, int | None]:
-    """(threads per block, scratch rows per chunk or None for the
-    shared-memory path) of a program with ``n_slots`` buffer slots, on a
-    device with shared memory ``smem`` (``device_smem``).
+class Geometry(NamedTuple):
+    """A program's launch shape on one device (``launch_geometry``)."""
 
-    On chip, the block size is the one of 128, 64 and 32 samples that keeps
-    the most samples resident per SM (ties to the larger block): the buffer's
-    size, not the thread count, bounds occupancy. A program whose buffer does
-    not fit even at 32 samples keeps it in a global-memory scratch.
+    tiles: int  # sample tiles per block
+    warps: int  # warps that share a tile (G)
+    stage_units: int  # 16-byte units of one buffer of a tile's record stage
+    smem: int  # dynamic shared memory per block, bytes
+    scratch_rows: int | None  # rows per launch of the global-memory path; None: the buffer is in shared memory
+    resident_warps: int  # warps per SM the shared memory and thread limits allow
+
+    @property
+    def threads(self) -> int:
+        return TILE * self.tiles * self.warps
+
+
+def tile_region(n_slots: int, itemsize: int, stage_units: int, on_chip: bool) -> int:
+    """Bytes of one tile's shared-memory region: its record stage's barriers
+    and ``STAGES`` buffers of ``stage_units`` 16-byte units, then its operand
+    buffer (``n_slots`` x ``TILE`` values) on the shared-memory path."""
+    head = -(-8 * STAGES // 16) * 16
+    return head + STAGES * stage_units * 16 + (n_slots * TILE * itemsize if on_chip else 0)
+
+
+def launch_geometry(n_slots: int, itemsize: int, phase_widths, smem: tuple[int, int, int]) -> Geometry:
+    """The launch shape of a program with ``n_slots`` buffer slots and the
+    given phase widths (ops per phase) on a device with shared memory
+    ``smem`` (``device_smem``).
+
+    G, the warps that share a tile, is what the widest phase fills at
+    ``UNROLL`` ops a warp, at most ``MAX_WARPS``. The buffer is in
+    shared memory when it fits ``TILE_BYTES_ON_CHIP`` (``slot_unit``) and a
+    block. A tile's stage
+    holds the widest phase's block (``STAGE_EXTRA`` units beside its
+    records). The tiles per block, at most ``MAX_TILES``, are those that keep
+    the most warps resident per SM (ties to fewer tiles), counting shared
+    memory (per block, per SM, the reserve per block), ``MAX_THREADS`` per
+    block, 2048 threads and 32 blocks per SM. A program whose one tile does
+    not fit a block keeps its buffer in a global-memory scratch instead, in
+    launches of ``scratch_rows`` rows within ``SCRATCH_BYTES``.
     """
     per_block, per_sm, reserved = smem
+    widest = max([int(w) for w in phase_widths] or [1])
+    warps = min(MAX_WARPS, max(1, -(-widest // UNROLL)))
+    units = widest + STAGE_EXTRA
+    on_chip = slot_unit(n_slots, itemsize) > 1 and tile_region(n_slots, itemsize, units, True) <= per_block
+    region = tile_region(n_slots, itemsize, units, on_chip)
     best = None
-    for threads in (128, 64, 32):
-        need = n_slots * threads * itemsize + RECORD_CHUNK * REC_DTYPE.itemsize
+    for tiles in range(1, min(MAX_TILES, MAX_THREADS // (TILE * warps)) + 1):
+        need = tiles * region
         if need > per_block:
-            continue
-        resident = min(per_sm // (need + reserved), 32, 2048 // threads) * threads
-        if best is None or resident > best[0]:
-            best = (resident, threads)
-    if best is not None:
-        return best[1], None
-    return 128, max(128, SCRATCH_BYTES // (n_slots * itemsize) // 128 * 128)
+            break
+        blocks = min(32, per_sm // (need + reserved), 2048 // (TILE * warps * tiles))
+        resident = min(64, blocks * tiles * warps)
+        if best is None or resident > best.resident_warps:
+            best = Geometry(tiles, warps, units, need, None, resident)
+    if on_chip:
+        return best
+    rows_per_block = TILE * best.tiles
+    rows = max(rows_per_block, SCRATCH_BYTES // (n_slots * itemsize) // rows_per_block * rows_per_block)
+    return best._replace(scratch_rows=rows)
 
 
 class DaisKernel:
@@ -411,16 +627,25 @@ class DaisKernel:
         prog = ex.prog
         self.plain = ex.plain
         self.dtype, self.itemsize = ex.dtype, np.dtype(ex.np_dtype).itemsize
+        self.bits = 8 * self.itemsize
         self.n_in, self.n_out, self.n_ops = prog.n_in, prog.n_out, prog.n_ops
-        self.slot, self.n_slots = assign_slots(prog, ex.schedule.order)
-        self.records = op_records(ex, self.slot)
+        self.phases = phase_bounds(ex.schedule, PHASE_OPS)
+        self.slot, self.n_slots = assign_slots(prog, ex.schedule.order, self.phases)
+        wide = wide_records(ex, self.slot)
+        self.fam = wide['fam']
+        self.slot_unit = slot_unit(self.n_slots, self.itemsize)
+        self.records, self.pool = pack_records(wide, self.bits, self.slot_unit)
+        self.phase_table, self.groups = phase_tables(self.phases, self.fam)
+        self.stream, self.offsets, self.stream_pool = phase_stream(self.phase_table, self.groups, self.records,
+                                                                   self.pool)  # fmt: skip
         out_idx = prog.out_idxs.astype(np.int64)
         self.outs = np.stack(
             [np.where(out_idx >= 0, self.slot[np.clip(out_idx, 0, max(self.n_ops - 1, 0))], 0),
              np.where(out_idx < 0, 0, np.where(prog.out_negs != 0, -1, 1))], axis=1,
         ).astype(np.int64) if self.n_ops else np.zeros((self.n_out, 2), np.int64)  # fmt: skip
+        self.outs[:, 0] *= self.slot_unit
         self.table = np.ascontiguousarray(ex.meta['flat_tab'])
-        self.int_ops_per_sample = int(record_ops(self.records, 8 * self.itemsize).sum())
+        self.int_ops_per_sample = int(record_ops(self.fam, self.records, self.pool, self.bits).sum())
         self._dev: dict[torch.device, tuple] = {}
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
@@ -430,17 +655,35 @@ class DaisKernel:
             raise ValueError(f'the DAIS kernel runs on CUDA tensors (CPU: its plain version), got {x.device}')
         return self.launch(x)
 
-    def geometry(self, device: torch.device) -> tuple[int, int | None]:
+    @property
+    def phase_widths(self) -> list[int]:
+        return [e - s for s, e in self.phases]
+
+    def geometry(self, device: torch.device) -> Geometry:
         """``launch_geometry`` of this program on ``device``."""
-        return launch_geometry(self.n_slots, self.itemsize, device_smem(device))
+        return launch_geometry(self.n_slots, self.itemsize, self.phase_widths, device_smem(device))
+
+    def occupancy(self, device: torch.device) -> int:
+        """Warps per SM resident at once, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
+        reports it for this program's geometry (registers included)."""
+        g = self.geometry(device)
+        lib = load()
+        blocks = ctypes.c_int(0)
+        rc = lib.dais_exec_occupancy(device.index, self.bits == 64, g.scratch_rows is not None, g.threads, g.smem,
+                                     ctypes.byref(blocks))  # fmt: skip
+        _check(lib, rc, 'cudaOccupancyMaxActiveBlocksPerMultiprocessor')
+        return blocks.value * g.tiles * g.warps
 
     def _on(self, device: torch.device) -> tuple:
         hit = self._dev.get(device)
         if hit is None:
-            rec = torch.from_numpy(self.records.view(np.uint8)).to(device)
-            outs = torch.from_numpy(self.outs).to(device)
-            tab = torch.from_numpy(self.table).to(device)
-            hit = self._dev[device] = (rec, outs, tab)
+
+            def move(a):
+                return torch.from_numpy(np.ascontiguousarray(a).view(np.uint8)).to(device)
+
+            hit = self._dev[device] = tuple(
+                move(a) for a in (self.stream, self.offsets, self.stream_pool, self.outs, self.table)
+            )
         return hit
 
     def launch(self, x: torch.Tensor) -> torch.Tensor:
@@ -455,23 +698,28 @@ class DaisKernel:
         if batch == 0 or self.n_out == 0:
             return y
         lib = load()
-        rec, outs, tab = self._on(device)
-        threads, rows = self.geometry(device)
-        fn = lib.dais_exec_i64 if self.dtype == torch.int64 else lib.dais_exec_i32
+        stream_, offsets, pool, outs, tab = (t.data_ptr() for t in self._on(device))
+        g = self.geometry(device)
+        if (g.scratch_rows is None) != (self.slot_unit > 1):
+            raise ValueError(f'DAIS kernel: a {self.n_slots}-slot tile does not fit this device\'s shared memory')
         stream = torch.cuda.current_stream(device).cuda_stream
-        n_in = max(self.n_in, 1)
-        if rows is None:
-            rc = fn(device.index, rec.data_ptr(), self.n_ops, x.data_ptr(), n_in, outs.data_ptr(), self.n_out,
-                    y.data_ptr(), tab.data_ptr(), batch, self.n_slots, threads, None, stream)  # fmt: skip
-            _check(lib, rc, 'dais_exec launch')
+
+        def run(r0: int, n: int, scratch) -> None:
+            rc = lib.dais_exec_launch(
+                device.index, self.bits == 64, stream_, offsets, pool, x[r0:].data_ptr(), outs, y[r0:].data_ptr(),
+                tab, scratch, n, max(self.n_in, 1), self.n_out, len(self.phases), self.n_slots, g.tiles, g.warps,
+                g.stage_units, stream,
+            )  # fmt: skip
+            _check(lib, rc, 'dais_exec launch' if scratch is None else 'dais_exec launch (global-memory scratch)')
+
+        if g.scratch_rows is None:
+            run(0, batch, None)
             launches += 1
             return y
+        rows = g.scratch_rows
         scratch = torch.empty(rows * self.n_slots, dtype=self.dtype, device=device)
         for r0 in range(0, batch, rows):
-            n = min(rows, batch - r0)
-            rc = fn(device.index, rec.data_ptr(), self.n_ops, x[r0:].data_ptr(), n_in, outs.data_ptr(), self.n_out,
-                    y[r0:].data_ptr(), tab.data_ptr(), n, self.n_slots, threads, scratch.data_ptr(), stream)  # fmt: skip
-            _check(lib, rc, 'dais_exec launch (global-memory scratch)')
+            run(r0, min(rows, batch - r0), scratch.data_ptr())
             launches += 1
             scratch_launches += 1
         return y
