@@ -4,13 +4,19 @@
 Drives the port's main paths end to end on the card and checks every kernel
 on them against its plain PyTorch version:
 
-1. card: prints ``nvidia-smi``'s name and power limit; nvcc builds the DAIS
-   kernel K1 (``csrc/dais_exec.cu``), the greedy-CSE kernel K2
-   (``csrc/fused_cse.cu``) and K2's phase-timing build, sm_90a, one nvcc
-   each, all started together; prints ptxas' report of K1 and K2;
-2. host solve: traces the flagship MLP (16→32→32→5, 4-bit weights) through
-   the port's tracer and host CMVM solver into one DAIS program (timed on
-   its own);
+1. card: prints ``nvidia-smi``'s name and power limit and the host's CPU
+   model; nvcc builds the DAIS kernel K1 (``csrc/dais_exec.cu``), the
+   greedy-CSE kernel K2 (``csrc/fused_cse.cu``) and K2's phase-timing build,
+   sm_90a, one nvcc each, and g++ the native host library
+   (``native/src``), all started together; prints ptxas' report of K1 and K2,
+   ``g++ --version`` and the native library's path and build seconds, and
+   loads it (a failed build fails the script with the compiler's output);
+2. host solves: traces the flagship MLP (16→32→32→5, 4-bit weights) through
+   the port's tracer into one DAIS program with each host solver, timed on
+   its own: ``'cpu'`` (the Python solver, a spawned worker pool while the
+   native library is loaded in this process), ``'cpp'`` (the native one)
+   and ``'auto'`` (which must resolve to the native one); the three programs
+   must be byte-identical;
 3. K1 corpus: the DAIS kernel against its plain ``level`` version on the
    card, bit for bit (``torch.equal``), on a seeded synth corpus that covers
    all eleven opcode families and wide int64 programs, at batches of 33,
@@ -25,9 +31,12 @@ on them against its plain PyTorch version:
    launch count is reset just before and read just after; every rung call is
    recorded; the wall time has no stage timer inside); no lane may go to the
    host, ``torch_search.init_cache`` must not run (K2 builds the score cache
-   itself), and the program must be byte-identical to the host-solved one;
-   a second run of the same search times the rung calls by stage (upload,
-   K2, fetch) and the host side by stage (tracing, decomposition, emission);
+   itself), the host side must go through the native library (its
+   ``decompose_batch`` and ``emit_batch`` calls counted), and the program
+   must be byte-identical to the host-solved one; a second run of the same
+   search times the rung calls by stage (upload, K2, fetch) and the host
+   side by stage (tracing, decomposition, emission), and a third does the
+   same with the Python host side (``has_emit`` patched off);
 5. flagship execution (K1's main path): 2^20 numpy-seeded samples through
    ``DaisExecutor`` on the device-solved program (K1's count reset just
    before, read just after) and through ``entry()``; the output must equal
@@ -35,7 +44,10 @@ on them against its plain PyTorch version:
    prints its launch shape as for the corpus (at least 24 resident warps per
    SM); times the call's host stages, and K1 and its plain version; times K1
    again with other phase sizes (one phase per level among them) and warps
-   per tile, each held to the plain version;
+   per tile, each held to the plain version; then the host runtimes on the
+   same inputs, ``run_comb(backend='cpp')`` on all 2^20 samples and
+   ``'numpy'`` on the first 2^16, each bit-equal to K1's output (host
+   seconds);
 6. K2 corpus: every recorded flagship rung, and seeded random trit lanes
    (i == j chains, methods 0-5, adder/carry sizes unset and set, a padding
    lane, K = 16 classes at P = 512, 1024 and 2048, the last too large for
@@ -50,9 +62,19 @@ on them against its plain PyTorch version:
    bound from the iterations each rung recorded (the kernel line sums the
    flagship's rungs);
 7. wider layers: the four six-bit layers of ``bench.py`` (16×64, 64×32,
-   32×32, 32×5) solved with ``solve_torch_many`` on the card, held to
-   ``Pipeline.kernel == kernel``;
-8. checks that neither jax nor da4ml_tpu was imported.
+   32×32, 32×5), each solved by the native solver (``solve_native``, timed
+   per layer) and all by ``solve_torch_many`` on the card; each device
+   solution must equal the native one op for op, and ``Pipeline.kernel ==
+   kernel``;
+8. OpenMP: the native library's OpenMP calls beside CUDA torch's own
+   OpenMP runtime. The flagship's ``run_binary`` on 2^18 samples, a replay
+   of the device search's ``emit_batch`` calls and the wider layers'
+   ``solve_native`` are timed in this process (CUDA torch loaded, the card
+   in use) and in two child processes that load the library without torch,
+   one at the default thread count and one with ``OMP_NUM_THREADS=1``; a
+   child prints the library's ``omp_get_max_threads()`` and each process
+   the OpenMP runtimes it maps; all outputs must agree;
+9. checks that neither jax nor da4ml_tpu was imported.
 
 Prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -63,8 +85,11 @@ Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import pickle
+import platform
 import re
 import statistics
 import subprocess
@@ -86,6 +111,10 @@ FP32_OPS_PER_S = 132 * 128 * 1.98e9
 SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 
 FLAGSHIP_SAMPLES = 1 << 20
+#: samples of the flagship run through the vectorized numpy interpreter
+NUMPY_SAMPLES = 1 << 16
+#: samples of the flagship run through ``run_binary`` by the OpenMP phase
+OMP_SAMPLES = 1 << 18
 CORPUS_BATCHES = (33, 1000, 131073)
 #: the wider JEDI-MLP layers of bench.py (section 2_jedi_mlp_layers), six-bit
 WIDE_LAYERS = ((16, 64), (64, 32), (32, 32), (32, 5))
@@ -97,6 +126,32 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     ).stdout  # fmt: skip
     return out.strip().splitlines()[0]
+
+
+def cpu_model() -> str:
+    """The host CPU's model name as ``lscpu`` gives it, and the machine's
+    architecture (host times are read on its clock)."""
+    try:
+        out = subprocess.run(['lscpu'], capture_output=True, text=True, check=True).stdout
+    except (OSError, subprocess.CalledProcessError):  # no lscpu: the kernel's own list
+        with open('/proc/cpuinfo') as f:
+            out = f.read().replace('model name\t:', 'Model name:')
+    names = [line.split(':', 1)[1].strip() for line in out.splitlines() if line.startswith('Model name:')]
+    return f"{names[0] if names else 'no model name'} ({platform.machine()})"
+
+
+def gxx_version() -> str:
+    return subprocess.run(['g++', '--version'], capture_output=True, text=True, check=True).stdout.splitlines()[0]
+
+
+def same_solution(a, b) -> bool:
+    """Two pipelines are the same solution, op for op."""
+    return len(a.stages) == len(b.stages) and all(
+        list(sa.ops) == list(sb.ops) and list(sa.out_idxs) == list(sb.out_idxs)
+        and list(sa.out_shifts) == list(sb.out_shifts) and list(map(bool, sa.out_negs)) == list(map(bool, sb.out_negs))
+        and list(sa.inp_shifts) == list(sb.inp_shifts)
+        for sa, sb in zip(a.stages, b.stages)
+    )  # fmt: skip
 
 
 def cuda_ms(fn, reps: int, fresh=None) -> float:
@@ -256,13 +311,130 @@ def k1_scheme_scan(torch, prog, x, y_plain, ptxas, card: str) -> None:
               f"{', '.join(f'{t:.4f}' for t in times)} ms, equal")  # fmt: skip
 
 
-def run_dais_flagship(torch, prog, card: str, ptxas) -> dict:
-    """K1's main path: the flagship program on 2^20 samples, checked and timed."""
+def host_runtimes(comb, data, y) -> None:
+    """The host runtimes on K1's inputs: ``run_comb(backend='cpp')`` on all of
+    them, ``'numpy'`` on the first 2^16; each must equal K1's output ``y``
+    bit for bit. Prints their host seconds."""
+    from da4ml_tpu_torch.runtime import run_comb
+
+    t0 = time.perf_counter()
+    y_cpp = run_comb(comb, data, backend='cpp')
+    t1 = time.perf_counter()
+    y_np = run_comb(comb, data[:NUMPY_SAMPLES], backend='numpy')
+    t2 = time.perf_counter()
+    assert np.array_equal(y_cpp, y), "run_comb(backend='cpp') disagrees with K1"
+    assert np.array_equal(y_np, y[:NUMPY_SAMPLES]), "run_comb(backend='numpy') disagrees with K1"
+    print(f"host runtimes (host clock, {cpu_model()}): 'cpp' {t1 - t0:.4f} s for {len(data)} samples "
+          f"(OpenMP's default thread count), 'numpy' {t2 - t1:.4f} s for {NUMPY_SAMPLES} samples; both bit-equal "
+          f"to K1's output")  # fmt: skip
+
+
+def gomp_maps() -> list[str]:
+    """The OpenMP runtimes (libgomp files) mapped into this process."""
+    with open('/proc/self/maps') as f:
+        return sorted({line.split()[-1] for line in f if 'gomp' in line.split()[-1]})
+
+
+def native_timings(native, job: dict, wide: bool) -> dict:
+    """Host seconds of the native library's OpenMP calls on ``job``: the
+    flagship's ``run_binary`` (twice), a replay of the device search's
+    ``emit_batch`` calls (five times) and, with ``wide``, ``solve_native`` on
+    the wider layers; and what they returned, to compare across processes."""
+    secs: dict[str, list[float]] = {'run_binary': [], 'emit_batch': [], 'solve_native': []}
+    for _ in range(2):
+        t0 = time.perf_counter()
+        y = native.run_binary(job['binary'], job['data'])
+        secs['run_binary'].append(time.perf_counter() - t0)
+    for _ in range(5):
+        t0 = time.perf_counter()
+        emit_costs = [s.cost for args, kw in job['emit'] for s in native.emit_batch(*args, **kw)]
+        secs['emit_batch'].append(time.perf_counter() - t0)
+    wide_costs = []
+    for k in job['wide'] if wide else ():
+        t0 = time.perf_counter()
+        wide_costs.append(float(native.solve_native(k).cost))
+        secs['solve_native'].append(time.perf_counter() - t0)
+    digest = hashlib.sha256(y.tobytes()).hexdigest()
+    return {'seconds': secs, 'y': digest, 'emit_costs': emit_costs, 'wide_costs': wide_costs}
+
+
+def omp_child(job_path: str, wide: bool) -> dict:
+    """The child side of :func:`openmp_check`: the library loaded without
+    torch, so the process holds one OpenMP runtime, whose
+    ``omp_get_max_threads()`` is read through the library's handle."""
+    from da4ml_tpu_torch import native
+
+    lib = native.load_lib()
+    assert lib is not None, native.load_error()
+    with open(job_path, 'rb') as f:
+        job = pickle.load(f)
+    out = native_timings(native, job, wide)
+    assert 'torch' not in sys.modules, 'the child process imported torch'
+    return {**out, 'omp_max_threads': lib.omp_get_max_threads(), 'gomp': gomp_maps()}
+
+
+def openmp_check(torch, native, native_build, comb, emit_calls: list, wide_kernels: list) -> None:
+    """The library's OpenMP calls in this process (CUDA torch loaded, its own
+    OpenMP runtime) against the same calls in child processes without torch,
+    at the default thread count and with ``OMP_NUM_THREADS=1``: a hang or an
+    oversubscription beside torch shows as a stall or as this process's
+    default being slower than the child's. Every process's outputs must
+    agree."""
+    binary = comb.to_binary()
+    data = np.random.default_rng(20261017).uniform(-8, 8, (OMP_SAMPLES, comb.shape[0]))
+    job = {'binary': binary, 'data': data, 'emit': emit_calls, 'wide': wide_kernels}
+    path = native_build.lib_path().parent / f'openmp_check_{os.getpid()}.pkl'
+    with open(path, 'wb') as f:
+        pickle.dump(job, f)
+    try:
+        here = native_timings(native, job, wide=True)
+        one = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            native.run_binary(binary, data, n_threads=1)
+            one.append(time.perf_counter() - t0)
+        children = {}
+        code = 'import json, sys, chip_smoke; print(json.dumps(chip_smoke.omp_child(sys.argv[1], sys.argv[2] == "1")))'
+        here_dir = os.path.dirname(os.path.abspath(__file__))
+        for label, env, wide in (('default', {}, '1'), ('OMP_NUM_THREADS=1', {'OMP_NUM_THREADS': '1'}, '0')):
+            proc = subprocess.run([sys.executable, '-c', code, str(path), wide], cwd=here_dir, env={**os.environ, **env},
+                                  capture_output=True, text=True, timeout=600)  # fmt: skip
+            assert proc.returncode == 0, f'OpenMP child ({label}) failed:\n{proc.stderr[-4000:]}'
+            children[label] = json.loads(proc.stdout.strip().splitlines()[-1])
+    finally:
+        path.unlink(missing_ok=True)
+    free, single = children['default'], children['OMP_NUM_THREADS=1']
+    for c in (free, single):
+        assert c['y'] == here['y'] and c['emit_costs'] == here['emit_costs'], 'the native calls differ across processes'
+    assert free['wide_costs'] == here['wide_costs'] and single['omp_max_threads'] == 1
+
+    def fmt(xs):
+        return ', '.join(f'{x:.4f}' for x in xs)
+
+    print(f"OpenMP (host clock, {cpu_model()}): this process (CUDA torch, torch.get_num_threads() "
+          f"{torch.get_num_threads()}) maps {gomp_maps()}; a child without torch maps {free['gomp']}, where the "
+          f"library's omp_get_max_threads() is {free['omp_max_threads']} ({single['omp_max_threads']} with "
+          f"OMP_NUM_THREADS=1); outputs equal in all three processes")  # fmt: skip
+    print(f"OpenMP run_binary, flagship, {OMP_SAMPLES} samples (s): this process {fmt(here['seconds']['run_binary'])}, "
+          f"n_threads=1 {fmt(one)}; without torch {fmt(free['seconds']['run_binary'])}, OMP_NUM_THREADS=1 "
+          f"{fmt(single['seconds']['run_binary'])}")  # fmt: skip
+    print(f"OpenMP emit_batch, the flagship search's {len(emit_calls)} calls replayed (s): this process "
+          f"{fmt(here['seconds']['emit_batch'])}; without torch {fmt(free['seconds']['emit_batch'])}, "
+          f"OMP_NUM_THREADS=1 {fmt(single['seconds']['emit_batch'])}")  # fmt: skip
+    print(f"OpenMP solve_native, wider layers {WIDE_LAYERS} (s): this process {fmt(here['seconds']['solve_native'])}; "
+          f"without torch {fmt(free['seconds']['solve_native'])}", flush=True)  # fmt: skip
+
+
+def run_dais_flagship(torch, comb, card: str, ptxas) -> dict:
+    """K1's main path: the flagship program on 2^20 samples, checked and
+    timed; then the host runtimes on the same inputs."""
     from da4ml_tpu_torch.entry import entry
+    from da4ml_tpu_torch.ir.dais_binary import decode
     from da4ml_tpu_torch.runtime import cuda_backend
     from da4ml_tpu_torch.runtime.reference import run_program
     from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
 
+    prog = decode(comb.to_binary())
     data = np.random.default_rng(20260729).uniform(-8, 8, (FLAGSHIP_SAMPLES, prog.n_in))
     ex = DaisExecutor(prog)
     assert ex.device.type == 'cuda' and ex.dtype == torch.int32
@@ -328,6 +500,7 @@ def run_dais_flagship(torch, prog, card: str, ptxas) -> dict:
           f'shared-memory traffic {smem_ms:.4f} ms)')  # fmt: skip
     print(f'[{card}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     k1_scheme_scan(torch, prog, x, y_plain, ptxas, card)
+    host_runtimes(comb, data, y)
     return {
         'name': 'dais_exec',
         'route': 'cuda',
@@ -430,15 +603,34 @@ class RungRecorder(Patched):
         return sum(self.seconds.values())
 
 
-def host_clock(ts) -> tuple[Patched, dict]:
+def counted(counts: dict, key: str, keep: list | None = None):
+    """A maker for :class:`Patched`: the function, its calls counted in
+    ``counts[key]`` (and their arguments appended to ``keep``)."""
+
+    def make(real):
+        def fn(*args, **kw):
+            counts[key] += 1
+            if keep is not None:
+                keep.append((args, kw))
+            return real(*args, **kw)
+
+        return fn
+
+    return make
+
+
+def host_clock(ts, native) -> tuple[Patched, dict]:
     """Times the device search's host side: ``solve`` (all of
-    ``solve_torch_many``), ``decomposition`` (kernel decomposition and each
-    lane's CSD) and ``emission`` (each lane's state from its op records, and
-    its adder tree)."""
+    ``solve_torch_many``), ``decomposition`` (kernel decomposition, native
+    or Python, and each lane's CSD) and ``emission`` (each group's adder
+    trees: one native ``emit_batch`` call, or each lane's state from its op
+    records and its tree in Python; and the argmin winners' ``CombLogic``)."""
     seconds = dict.fromkeys(('solve', 'decomposition', 'emission'), 0.0)
-    stages = {'solve_torch_many': 'solve', 'kernel_decompose': 'decomposition', '_prepare_lane': 'decomposition',
-              '_host_state_from': 'emission', 'to_solution': 'emission'}  # fmt: skip
-    return Patched({(ts, name): timed(seconds, key) for name, key in stages.items()}), seconds
+    stages = {(ts, 'solve_torch_many'): 'solve', (ts, 'kernel_decompose'): 'decomposition',
+              (native, 'decompose_batch'): 'decomposition', (ts, '_prepare_lane'): 'decomposition',
+              (ts, '_host_state_from'): 'emission', (ts, 'to_solution'): 'emission',
+              (native, 'emit_batch'): 'emission', (ts, '_as_comb'): 'emission'}  # fmt: skip
+    return Patched({name: timed(seconds, key) for name, key in stages.items()}), seconds
 
 
 def rung_work(ts, inputs, rec, cur, spec) -> dict[str, int]:
@@ -612,20 +804,24 @@ def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
+    from da4ml_tpu_torch import native
     from da4ml_tpu_torch.cmvm import fused_cse, solve_torch_many
     from da4ml_tpu_torch.cmvm import torch_search as ts
     from da4ml_tpu_torch.entry import flagship_comb
     from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.native import build as native_build
     from da4ml_tpu_torch.runtime import cuda_backend
     from da4ml_tpu_torch.runtime.reference import run_program
     from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
 
     card = card_line()
     print(card, flush=True)
+    print(f'host: {cpu_model()}, {os.cpu_count()} cores', flush=True)
 
-    # phase 1: nvcc builds K1, K2 and K2's phase-timing build, one process
-    # each, all started together; phase 2: then the host solves the flagship
-    # (timed alone: the builds would share its cores)
+    # phase 1: nvcc builds K1, K2 and K2's phase-timing build, and g++ the
+    # native host library, one process each, all started together; phase 2:
+    # then the host solves the flagship (timed alone: the builds would share
+    # its cores)
     builds: dict[str, float] = {}
     build_err: list[BaseException] = []
 
@@ -637,7 +833,8 @@ def main() -> int:
             build_err.append(e)
         builds[name] = time.perf_counter() - t0
 
-    jobs = (('dais_exec', cuda_backend.build), ('fused_cse', fused_cse.build), ('fused_cse phases', fused_cse.build_phases))
+    jobs = (('dais_exec', cuda_backend.build), ('fused_cse', fused_cse.build), ('fused_cse phases', fused_cse.build_phases),
+            ('native', native_build.build))  # fmt: skip
     threads = [threading.Thread(target=_build, args=a) for a in jobs]
     for t in threads:
         t.start()
@@ -656,10 +853,29 @@ def main() -> int:
     print(f"build fused_cse phases: {builds['fused_cse phases']:.3f} s (nvcc, sm_90a, -DFUSED_CSE_PHASES)")
     k2_regs = k2_ptxas(fused_cse.build_log)
     assert len(k2_regs) == 2 * len(fused_cse.CACHE_DEPTHS), f'ptxas reported K2 instantiations {sorted(k2_regs)}'
-    t0 = time.perf_counter()
-    comb = flagship_comb(n_workers=os.cpu_count() or 1)
-    solve_s = time.perf_counter() - t0
-    print(f'solve: {solve_s:.3f} s host CMVM ({os.cpu_count()} workers); cost {comb.cost}', flush=True)
+    print(f'build native: {builds["native"]:.3f} s ({gxx_version()}, {" ".join(native_build.CXX_FLAGS)}) '
+          f'-> {native_build.lib_path()}', flush=True)  # fmt: skip
+    assert native.load_lib() is not None, f'the native library did not load: {native.load_error()}'
+    assert native.has_solver() and native.has_emit()
+
+    # phase 2: the flagship through each host solver; 'cpu' spawns its worker
+    # pool while the native library is loaded in this process
+    host_s, host_comb, native_calls = {}, {}, {'solve_native': 0}
+    for backend, workers in (('cpu', os.cpu_count() or 1), ('cpp', 0), ('auto', 0)):
+        with Patched({(native, 'solve_native'): counted(native_calls, 'solve_native')}):
+            t0 = time.perf_counter()
+            host_comb[backend] = flagship_comb(backend=backend, n_workers=workers)
+            host_s[backend] = time.perf_counter() - t0
+        if backend == 'cpu':
+            assert native_calls['solve_native'] == 0, "backend='cpu' ran the native solver"
+    assert native_calls['solve_native'] == 2 * 3, "'cpp' and 'auto' must solve each layer natively"
+    comb = host_comb['cpu']
+    for backend in ('cpp', 'auto'):
+        assert np.array_equal(host_comb[backend].to_binary(), comb.to_binary()), f'{backend!r} differs from cpu'
+    solve_s = host_s['cpu']
+    print(f"solve: host CMVM (host clock, {cpu_model()}): 'cpu' {host_s['cpu']:.3f} s ({os.cpu_count()} spawned "
+          f"workers), 'cpp' {host_s['cpp']:.3f} s (OpenMP's default thread count), 'auto' {host_s['auto']:.3f} s "
+          f"(resolved to 'cpp'); programs byte-identical; cost {comb.cost}", flush=True)  # fmt: skip
 
     # phase 3: K1 corpus, kernel vs plain version on the card
     check_corpus(torch, DaisExecutor, cuda_backend, run_program, k1_regs)
@@ -667,7 +883,10 @@ def main() -> int:
     # phase 4: K2's main path — the flagship through the device search, its
     # wall time on the host clock with no stage timer inside
     pmax0 = ts.search_stats['pmax_host_fallbacks']
-    with RungRecorder(ts, fused_cse) as flag_rungs:
+    nat = dict.fromkeys(('decompose_batch', 'emit_batch'), 0)
+    emit_calls: list = []  # replayed by the OpenMP phase
+    native_counts = {(native, k): counted(nat, k, keep=emit_calls if k == 'emit_batch' else None) for k in nat}
+    with RungRecorder(ts, fused_cse) as flag_rungs, Patched(native_counts):
         fused_cse.reset_counts()
         t0 = time.perf_counter()
         comb_dev = flagship_comb(backend='torch')
@@ -678,35 +897,40 @@ def main() -> int:
     classes = sorted({(s.P, s.O, s.B, s.topk, s.R_in) for _, s in flag_rungs.calls})
     print(f'device search: flagship solved in {dev_s:.3f} s on the card (host solve {solve_s:.3f} s); '
           f'{len(flag_rungs.calls)} rung calls in {len(classes)} classes (P, O, B, K, R_in) {classes}; K2 launched '
-          f'{k2_launches} times; init_cache calls {flag_rungs.init_cache_calls}; PMAX host routes {pmax_routes}',
+          f'{k2_launches} times; init_cache calls {flag_rungs.init_cache_calls}; PMAX host routes {pmax_routes}; '
+          f'native decompose_batch calls {nat["decompose_batch"]}, emit_batch calls {nat["emit_batch"]}',
           flush=True)  # fmt: skip
     assert k2_launches == len(flag_rungs.calls) > 0, 'K2 must launch once per rung call of the device search'
     assert flag_rungs.init_cache_calls == 0, 'the device search built a score cache outside K2'
+    assert nat['decompose_batch'] > 0 and nat['emit_batch'] > 0, 'the device search skipped the native host side'
     assert pmax_routes == 0, f'{pmax_routes} flagship lanes went to the host solver'
     assert np.array_equal(comb_dev.to_binary(), comb.to_binary()), 'device-solved flagship differs from the host-solved'
     prog = decode(comb_dev.to_binary())
     print(f'device search: program byte-identical to the host solve ({prog.n_ops} ops, cost {comb_dev.cost})')
-    # the same search again (device='cuda' is its own cache key, so it traces
-    # anew), every stage timed: rung calls by stage, and the host side
-    clock, host_s = host_clock(ts)
-    with RungRecorder(ts, fused_cse, stages=True) as staged, clock:
-        fused_cse.reset_counts()
-        t0 = time.perf_counter()
-        comb_staged = flagship_comb(backend='torch', device='cuda')
-        torch.cuda.synchronize()
-        staged_s = time.perf_counter() - t0
-    assert fused_cse.launches == len(staged.calls) == len(flag_rungs.calls) and staged.init_cache_calls == 0
-    assert np.array_equal(comb_staged.to_binary(), comb.to_binary()), 'the staged device search differs'
-    rung_s = staged.total
-    stages = ', '.join(f'{k} {v:.4f} s' for k, v in staged.seconds.items())
-    other_s = host_s['solve'] - rung_s - host_s['decomposition'] - host_s['emission']
-    print(f'device search by stage (a second run, {staged_s:.3f} s, the timers synchronizing the device): rung calls '
-          f'{rung_s:.4f} s ({stages}); host: tracing {staged_s - host_s["solve"]:.4f} s, decomposition '
-          f'{host_s["decomposition"]:.4f} s, emission {host_s["emission"]:.4f} s, rung ladder and argmin {other_s:.4f} s',
-          flush=True)  # fmt: skip
+    # the same search again (another device string is its own cache key, so
+    # it traces anew), every stage timed: rung calls by stage, and the host
+    # side; then once more with the Python host side
+    for label, dev_key, py_host in (('native host side', 'cuda', False), ('Python host side', 'cuda:0', True)):
+        clock, clock_s = host_clock(ts, native)
+        py = Patched({(native, 'has_emit'): lambda real: (lambda: False)} if py_host else {})
+        with RungRecorder(ts, fused_cse, stages=True) as staged, clock, py:
+            fused_cse.reset_counts()
+            t0 = time.perf_counter()
+            comb_staged = flagship_comb(backend='torch', device=dev_key)
+            torch.cuda.synchronize()
+            staged_s = time.perf_counter() - t0
+        assert fused_cse.launches == len(staged.calls) == len(flag_rungs.calls) and staged.init_cache_calls == 0
+        assert np.array_equal(comb_staged.to_binary(), comb.to_binary()), f'the staged device search differs ({label})'
+        rung_s = staged.total
+        stages = ', '.join(f'{k} {v:.4f} s' for k, v in staged.seconds.items())
+        other_s = clock_s['solve'] - rung_s - clock_s['decomposition'] - clock_s['emission']
+        print(f'device search by stage, {label} ({staged_s:.3f} s, the timers synchronizing the device): rung calls '
+              f'{rung_s:.4f} s ({stages}); host: tracing {staged_s - clock_s["solve"]:.4f} s, decomposition '
+              f'{clock_s["decomposition"]:.4f} s, emission {clock_s["emission"]:.4f} s, rung ladder and argmin '
+              f'{other_s:.4f} s', flush=True)  # fmt: skip
 
     # phase 5: K1's main path at 2^20 samples, on the device-solved program
-    dais = run_dais_flagship(torch, prog, card, k1_regs)
+    dais = run_dais_flagship(torch, comb_dev, card, k1_regs)
 
     # phase 6: K2 corpus — the flagship's rungs (timed, phases of each) and
     # random trit lanes
@@ -764,17 +988,28 @@ def main() -> int:
     for ni, no in WIDE_LAYERS:
         mag = wrng.integers(0, 2**6, (ni, no)).astype(np.float64)
         kernels.append(mag * wrng.choice([-1.0, 1.0], (ni, no)))
+    native_sols, native_s = [], []
+    for k in kernels:
+        t0 = time.perf_counter()
+        native_sols.append(native.solve_native(k))
+        native_s.append(time.perf_counter() - t0)
     with RungRecorder(ts, fused_cse) as wide_rungs:
         t0 = time.perf_counter()
         sols = solve_torch_many(kernels)
         torch.cuda.synchronize()
         wide_s = time.perf_counter() - t0
-    for k, s in zip(kernels, sols):
+    for k, s, n in zip(kernels, sols, native_sols):
         assert np.array_equal(np.asarray(s.kernel, np.float64), k), f'wide layer {k.shape} is not exact'
-    print(f'wider layers {WIDE_LAYERS}: {wide_s:.3f} s on the card, exact; cost {[float(s.cost) for s in sols]} (total {sum(float(s.cost) for s in sols)}), '
-          f'{len(wide_rungs.calls)} rungs, largest P {max(s.P for _, s in wide_rungs.calls)}')  # fmt: skip
+        assert same_solution(s, n), f'wide layer {k.shape}: the device search differs from the native solver'
+    print(f'wider layers {WIDE_LAYERS}: {wide_s:.3f} s on the card, exact and op for op equal to the native solver '
+          f'({", ".join(f"{t:.3f}" for t in native_s)} s a layer, host clock, {cpu_model()}); cost '
+          f'{[float(s.cost) for s in sols]} (total {sum(float(s.cost) for s in sols)}), {len(wide_rungs.calls)} rungs, '
+          f'largest P {max(s.P for _, s in wide_rungs.calls)}')  # fmt: skip
 
-    # phase 8: the port imported nothing of JAX
+    # phase 8: the native library's OpenMP runtime beside CUDA torch's
+    openmp_check(torch, native, native_build, comb_dev, emit_calls, kernels)
+
+    # phase 9: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
     kernels_line = [

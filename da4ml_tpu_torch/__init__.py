@@ -6,9 +6,11 @@ never jax and nothing of ``da4ml_tpu``; the modules it needs are its own
 copies. Entry points run on the CUDA device unless the caller passes
 ``device='cpu'``.
 
-The first slice carries the flagship path: trace → host CMVM solve → DAIS
+The flagship path: trace → CMVM solve (on the host, natively by default,
+or by the device search, whose greedy loop is ``csrc/fused_cse.cu``) → DAIS
 program → execution by the hand-written CUDA kernel ``csrc/dais_exec.cu``
-(``runtime.cuda_backend``). See ``entry.py``.
+(``runtime.cuda_backend``). See ``entry.py``. ``native/`` builds the C++ host
+library (solver, interpreter, the search's emission) with g++ at first use.
 """
 
 __version__ = '0.1.0'

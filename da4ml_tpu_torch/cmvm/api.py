@@ -6,12 +6,14 @@ host worker processes.
 
 Counterpart of ``da4ml_tpu/cmvm/api.py`` (``_solve_dispatch_impl``):
 
-- ``backend='cpu'`` (and ``'auto'``, which stays the host solver, as in the
-  reference) runs the host loop below;
+- ``backend='cpu'`` runs the Python host loop below;
+- ``backend='cpp'`` runs the native C++ solver (``native.solve_native``,
+  decision-identical with the host loop; ``n_workers`` is its OpenMP thread
+  count, OpenMP's own when <= 0);
+- ``backend='auto'`` resolves to ``'cpp'`` when the native solver builds and
+  loads (``native.has_solver()``), else to ``'cpu'``, as the reference's does;
 - ``backend='torch'`` runs the device search ``torch_search.solve_torch``
   on ``device`` (the card when None; ``'cpu'`` runs its plain torch loop).
-
-The native solver (``'cpp'``) is not ported yet and raises.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from .core import solve_single, to_solution
 from .decompose import kernel_decompose
 from .state import create_state
 
-BACKENDS = ('cpu', 'auto', 'torch')
+BACKENDS = ('cpu', 'cpp', 'auto', 'torch')
 
 
 def minimal_latency(
@@ -166,7 +168,9 @@ def solve(
 
     ``n_workers > 1`` solves the host sweep's candidates in that many worker
     processes (spawned: the caller may hold threads, and fork is unsafe
-    then); the result is the same as the sequential sweep's.
+    then); the result is the same as the sequential sweep's. On ``'cpp'`` it
+    is the native solver's thread count. ``'auto'`` is ``'cpp'`` when the
+    native library builds, else ``'cpu'``.
     """
     kernel = np.asarray(kernel, dtype=np.float64)
     if kernel.ndim != 2 or kernel.shape[0] == 0 or kernel.shape[1] == 0:
@@ -174,6 +178,11 @@ def solve(
     if backend not in BACKENDS:
         raise ValueError(f'backend {backend!r} is not ported to da4ml_tpu_torch (ported: {BACKENDS})')
     qintervals, latencies = _default_qint_lat(kernel, qintervals, latencies)
+
+    if backend == 'auto':  # the fastest host path, as in the reference
+        from ..native import has_solver
+
+        backend = 'cpp' if has_solver() else 'cpu'
 
     if backend == 'torch':
         from .torch_search import solve_torch
@@ -203,6 +212,23 @@ def solve(
             for mc in dict.fromkeys(method0_candidates)
         ]  # fmt: skip
         return min(sols, key=lambda s: s.cost)
+
+    if backend == 'cpp':
+        from ..native import solve_native
+
+        return solve_native(
+            kernel,
+            method0=method0,
+            method1=method1,
+            hard_dc=hard_dc,
+            decompose_dc=decompose_dc,
+            qintervals=qintervals,
+            latencies=latencies,
+            adder_size=adder_size,
+            carry_size=carry_size,
+            search_all_decompose_dc=search_all_decompose_dc,
+            n_threads=n_workers,
+        )
 
     if not search_all_decompose_dc:
         return _solve(kernel, method0, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size)

@@ -20,7 +20,13 @@ through ``fused_cse.greedy_loop``: on a CUDA tensor the hand-written kernel
 plain version :func:`rung_plain` — the cache build in torch ops
 (:func:`init_cache`), then :func:`greedy_plain`, a Python loop of batched
 torch ops over the lanes. The host does CSD/kernel decomposition, adder-tree
-emission (``core.to_solution``) and the argmin over candidates.
+emission and the argmin over candidates. When the native library builds
+(``native.has_emit``), kernel decomposition is one
+``decompose_batch`` call and each (O, B) group's finished lanes are emitted by
+one ``emit_batch`` call as array-backed ``RawComb`` handles, of which only
+the argmin's winners become ``CombLogic``s, as in the reference; otherwise
+``kernel_decompose`` and ``_host_state_from`` + ``core.to_solution`` in
+Python, which give the same solutions.
 
 Determinism: ties resolve in the host solver's scan order (the largest
 (id1, id0, sub, shift) key among maxima), so a single-lane search commits
@@ -52,6 +58,7 @@ from numpy.typing import NDArray
 
 from ..ir.comb import CombLogic, Pipeline
 from ..ir.types import Op, QInterval, qint_add
+from .. import native
 from ..parallel.shapes import canon_dim, next_pow2
 from ..runtime.torch_backend import resolve_device
 from . import api as _host_api
@@ -651,6 +658,11 @@ def _host_state_from(ln: _Lane, rec, E_lane, n_add: int, adder_size: int, carry_
     )
 
 
+def _as_comb(sol) -> CombLogic:
+    """Materialize a solution handle (native ``RawComb`` or ``CombLogic``)."""
+    return sol if isinstance(sol, CombLogic) else sol.to_comb()
+
+
 def _lane_key(ln: _Lane) -> tuple:
     return (
         ln.kernel.tobytes(),
@@ -672,7 +684,7 @@ def _host_lane(ln: _Lane, adder_size: int, carry_size: int, memo: dict) -> CombL
     return memo[key]
 
 
-def solve_single_lanes(lanes: list[_Lane], adder_size: int, carry_size: int, device=None) -> list[CombLogic]:
+def solve_single_lanes(lanes: list[_Lane], adder_size: int, carry_size: int, device=None) -> list:
     """Solve a batch of independent CMVM instances on the device, emit on host.
 
     - identical lanes solve once and share the result;
@@ -681,14 +693,17 @@ def solve_single_lanes(lanes: list[_Lane], adder_size: int, carry_size: int, dev
       rung uploads the pending lanes' state padded to ``P`` slots, runs
       :func:`cse_rung`, and fetches digits and records; lanes that reached
       ``cur == P`` resume at the next, larger rung;
-    - a rung's lanes run in chunks that fit ``DEVICE_BUDGET``.
+    - a rung's lanes run in chunks that fit ``DEVICE_BUDGET``;
+    - each group's finished lanes are emitted together (:func:`_emit_group`):
+      with the native library, as ``RawComb`` handles (:func:`_as_comb`
+      materializes either kind).
     """
     dev = resolve_device(device)
     for lane in lanes:
         if lane.csd is None:
             _prepare_lane(lane)
 
-    results: dict[int, CombLogic] = {}
+    results: dict = {}  # CombLogic, or RawComb from native emission
     dup_of: dict[int, int] = {}
     uniq: dict[tuple, int] = {}
     for k, ln in enumerate(lanes):
@@ -718,7 +733,9 @@ def solve_single_lanes(lanes: list[_Lane], adder_size: int, carry_size: int, dev
         gk = (canon_dim(lanes[k].csd.shape[1], 8), canon_dim(lanes[k].csd.shape[2], 2))
         groups.setdefault(gk, []).append(k)
     for (O, B), g_active in sorted(groups.items(), key=lambda it: (it[0][0] * it[0][1] ** 2, it[0]), reverse=True):
-        results.update(_run_group(lanes, O, B, g_active, adder_size, carry_size, dev, memo))
+        emit_jobs, net = _run_group(lanes, O, B, g_active, adder_size, carry_size, dev, memo)
+        results.update(net)
+        results.update(_emit_group(lanes, emit_jobs, adder_size, carry_size))
 
     for k, src in dup_of.items():
         results[k] = results[src]
@@ -726,7 +743,10 @@ def solve_single_lanes(lanes: list[_Lane], adder_size: int, carry_size: int, dev
 
 
 def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_size: int, dev, memo: dict):
-    """One canonical (O, B) class through the rung ladder, then emission."""
+    """One canonical (O, B) class through the rung ladder: the emission jobs
+    ``(lane, E_lane, rec, shift0)`` of its finished lanes, in host op
+    numbering and input order, and the lanes the PMAX safety net solved on
+    the host."""
     n_in_max = next_pow2(max(lanes[k].csd.shape[0] for k in active))
     n_act = len(active)
     st_cur = np.full((n_act,), n_in_max, dtype=np.int64)
@@ -813,7 +833,7 @@ def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_
                     st_E[a] = E_all[x].copy()
         pend = next_pend
 
-    out: dict[int, CombLogic] = dict(net)
+    emit_jobs: list[tuple[int, NDArray, NDArray, NDArray]] = []
     for a, k in enumerate(active):
         if k in net:
             continue
@@ -843,7 +863,26 @@ def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_
             for c in (0, 1):
                 v = rec[:, c]
                 rec[:, c] = np.where(v < ni, perm[np.minimum(v, ni - 1)], v)
-        state = _host_state_from(ln, rec, E_lane, len(rec), adder_size, carry_size, shift0=shift0)
+        emit_jobs.append((k, E_lane, rec, shift0))
+    return emit_jobs, net
+
+
+def _emit_group(lanes, emit_jobs: list, adder_size: int, carry_size: int) -> dict:
+    """Adder-tree emission of one group's finished lanes: one native
+    ``emit_batch`` call (``RawComb`` handles), or per lane
+    ``_host_state_from`` + ``to_solution`` without the native library."""
+    out: dict = {}
+    if native.has_emit():
+        lane_tuples = []
+        for k, E_lane, rec, shift0 in emit_jobs:
+            ln = lanes[k]
+            qints = np.asarray([(q.min, q.max, q.step) for q in ln.qintervals], np.float64).reshape(-1, 3)
+            lane_tuples.append((shift0, ln.shift1, qints, np.asarray(ln.latencies, np.float64), E_lane, rec))
+        for (k, _, _, _), sol in zip(emit_jobs, native.emit_batch(lane_tuples, adder_size, carry_size)):
+            out[k] = sol
+        return out
+    for k, E_lane, rec, shift0 in emit_jobs:
+        state = _host_state_from(lanes[k], rec, E_lane, len(rec), adder_size, carry_size, shift0=shift0)
         out[k] = to_solution(state, adder_size, carry_size)
     return out
 
@@ -933,8 +972,8 @@ def solve_torch_many(
       per selection heuristic; the argmin keeps the cheapest.
     - ``n_restarts``: each stage-0 search also runs under r - 1 seeded
       input-slot permutations (exact after renumbering; only cost differs).
-    - ``include_host``: fold the host solver's solution into each matrix's
-      argmin.
+    - ``include_host``: fold the host solver's solution (``backend='auto'``:
+      the native solver when it builds) into each matrix's argmin.
     - ``hard_dc >= 0``: the host's shrink-and-retry dc ladder runs as extra
       lanes; if no candidate meets the budget the forced dc = -1 / wmc-dc
       lane is accepted, as the host's terminal break.
@@ -979,15 +1018,20 @@ def solve_torch_many(
             for r in range(n_restarts if _lane_method(mpairs[mp][0], dc, hard_eff) != 'dummy' else 1)
         )
 
-    uniq_md: dict[tuple[int, int], tuple] = {}
+    # kernel decomposition of each distinct (matrix, dc): one native batch
+    # (OpenMP over them) when the library builds
+    uniq_md: dict[tuple[int, int], int] = {}
     for mi, dc, _, _ in jobs:
-        if (mi, dc) not in uniq_md:
-            uniq_md[(mi, dc)] = kernel_decompose(kernels[mi], dc)
+        uniq_md.setdefault((mi, dc), len(uniq_md))
+    if native.has_emit():
+        splits = native.decompose_batch([kernels[mi] for mi, _ in uniq_md], [dc for _, dc in uniq_md])
+    else:
+        splits = [kernel_decompose(kernels[mi], dc) for mi, dc in uniq_md]
 
     lanes0: list[_Lane] = []
     mats1: list[NDArray] = []
     for mi, dc, mp, r in jobs:
-        mat0, mat1 = uniq_md[(mi, dc)]
+        mat0, mat1 = splits[uniq_md[(mi, dc)]]
         method_0 = _lane_method(mpairs[mp][0], dc, hard_eff)
         perm = None
         if r > 0 and method_0 != 'dummy':  # deterministic per-(matrix, dc, restart) shuffle
@@ -996,6 +1040,8 @@ def solve_torch_many(
         lanes0.append(_Lane(mat0, _qints(mi), _lats(mi), method_0, perm=perm))
         mats1.append(mat1)
 
+    # both stages keep native solutions as RawComb handles: only the argmin's
+    # winners become CombLogics
     sols0 = solve_single_lanes(lanes0, adder_size, carry_size, device=dev)
     lanes1 = [
         _Lane(mat1, list(sol0.out_qint), list(sol0.out_latency), _lane_method(mpairs[mp][1], dc, hard_eff))
@@ -1039,14 +1085,14 @@ def solve_torch_many(
             raise RuntimeError(f'no candidate solution for matrix {mi}')
         if best[mi] is None:
             search_stats['over_budget_accepts'] += 1
-        results.append(Pipeline(stages=pair))
+        results.append(Pipeline(stages=(_as_comb(pair[0]), _as_comb(pair[1]))))
 
     if include_host:
         for mi in range(n_mat):
             host = _host_api.solve(
                 kernels[mi], method0=method0, method1=method1, hard_dc=hard_dc, decompose_dc=decompose_dc,
                 qintervals=qintervals_list[mi], latencies=latencies_list[mi], adder_size=adder_size,
-                carry_size=carry_size, search_all_decompose_dc=search_all_decompose_dc,
+                carry_size=carry_size, search_all_decompose_dc=search_all_decompose_dc, backend='auto',
                 method0_candidates=method0_candidates,
             )  # fmt: skip
             if float(host.cost) < float(results[mi].cost):

@@ -2,10 +2,12 @@
 
 Counterpart of ``__graft_entry__.py``'s ``_flagship_comb`` and ``entry``: a
 JEDI-linear-style quantized MLP is traced, its matrices are CMVM-solved into
-one DAIS program — on the host (``backend='cpu'``) or by the device search
-(``backend='torch'``, whose greedy loop is the CUDA kernel
-``csrc/fused_cse.cu``) — and the program runs through the hand-written CUDA
-kernel ``csrc/dais_exec.cu``.
+one DAIS program — on the host (``backend='auto'``, the reference's
+default: the native solver when it builds, else the Python one; or either
+by name, ``'cpp'`` or ``'cpu'``) or by the device search (``backend='torch'``,
+whose greedy loop is the CUDA kernel ``csrc/fused_cse.cu``) — and the
+program runs through the hand-written CUDA kernel ``csrc/dais_exec.cu``.
+Every backend gives the same program, byte for byte.
 """
 
 from __future__ import annotations
@@ -17,14 +19,15 @@ from .ir.comb import CombLogic
 _FLAGSHIP: dict[tuple, CombLogic] = {}
 
 
-def flagship_comb(n_in=16, hidden=(32, 32), n_out=5, backend='cpu', n_workers=0, device=None) -> CombLogic:
+def flagship_comb(n_in=16, hidden=(32, 32), n_out=5, backend='auto', n_workers=0, device=None) -> CombLogic:
     """Trace the JEDI-linear-style MLP to a CombLogic: 4-bit integer weights,
     ``relu(i=5, f=2)`` between layers, inputs quantized to (1, 3, 2).
 
     The trace is deterministic, so it is kept per (shape, backend, device);
     ``n_workers`` host processes share each layer's decompose-depth sweep of
-    the host solver without changing the result; ``device`` is where the
-    ``'torch'`` backend searches (the card when None).
+    the ``'cpu'`` solver (threads of the ``'cpp'`` one) without changing the
+    result; ``device`` is where the ``'torch'`` backend searches (the card
+    when None).
     """
     key = (n_in, tuple(hidden), n_out, backend, None if device is None else str(device))
     if key in _FLAGSHIP:

@@ -214,18 +214,22 @@ class CombLogic(NamedTuple):
 
     # -------------------------------------------------------------- predict
 
-    def predict(self, data: NDArray | Sequence[NDArray], backend: str = 'torch', device=None) -> NDArray[np.float64]:
-        """Bit-exact batch inference through the port's runtime.
+    def predict(
+        self, data: NDArray | Sequence[NDArray], backend: str = 'torch', device=None, n_threads: int = 0
+    ) -> NDArray[np.float64]:
+        """Bit-exact batch inference through the port's runtime (``run_comb``).
 
         backend: ``'torch'`` (the DAIS executor: the CUDA kernel on a CUDA
-        device, its plain torch version on ``device='cpu'``) or ``'numpy'``
-        (the host reference interpreter). ``device=None`` means the card.
+        device, its plain torch version on ``device='cpu'``; ``device=None``
+        means the card), ``'numpy'`` (the vectorized host interpreter) or
+        ``'cpp'`` (the native host interpreter on ``n_threads`` OpenMP
+        threads, OpenMP's count when <= 0).
         """
         if isinstance(data, Sequence):
             data = np.concatenate([np.asarray(a).reshape(len(a), -1) for a in data], axis=-1)
         from ..runtime import run_comb
 
-        return run_comb(self, np.asarray(data, dtype=np.float64), backend=backend, device=device)
+        return run_comb(self, np.asarray(data, dtype=np.float64), backend=backend, device=device, n_threads=n_threads)
 
 
 class Pipeline(NamedTuple):
@@ -260,9 +264,11 @@ class Pipeline(NamedTuple):
         lo, hi = self.latency
         return f'Pipeline([{" -> ".join(map(str, dims))}], cost={self.cost}, latency={lo}-{hi})'
 
-    def predict(self, data, backend: str = 'torch', device=None):
-        """Stage-by-stage execution with a float boundary between stages."""
+    def predict(self, data, backend: str = 'torch', device=None, n_threads: int = 0):
+        """Stage-by-stage execution with a float boundary between stages,
+        each through :meth:`CombLogic.predict` with these arguments
+        (``'torch'``, ``'numpy'`` or ``'cpp'``)."""
         out = np.asarray(data, dtype=np.float64)
         for stage in self.stages:
-            out = stage.predict(out, backend=backend, device=device)
+            out = stage.predict(out, backend=backend, device=device, n_threads=n_threads)
         return out

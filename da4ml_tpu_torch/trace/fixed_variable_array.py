@@ -2,9 +2,11 @@
 
 ``FixedVariableArray`` wraps an object-dtype ndarray of FixedVariable.
 Variable × constant-matrix products route through the CMVM solver that
-``solver_options['backend']`` names (``'cpu'`` host, ``'torch'`` the device
-search, on ``solver_options['device']``); the elementwise operators lower to
-the scalar variable ops.
+``solver_options['backend']`` names: per distinct row through ``solve``
+(``'cpu'`` the Python host solver, ``'cpp'`` the native one, ``'auto'`` the
+native one when it builds), or all distinct rows as one lane batch of the
+device search (``'torch'``, on ``solver_options['device']``); the
+elementwise operators lower to the scalar variable ops.
 
 Counterpart of ``da4ml_tpu/trace/fixed_variable_array.py``, cut to what the
 port traces so far: input quantization, ``@`` by a constant matrix

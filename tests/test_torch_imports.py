@@ -20,10 +20,12 @@ x = inp.quantize(np.ones(4), np.full(4, 3), np.full(4, 2))
 comb = comb_trace(inp, (x @ np.array([[1., -3.], [2., 5.], [-7., 1.], [4., 4.]])).relu(i=np.full(2, 5), f=np.full(2, 2)))
 data = np.random.default_rng(0).uniform(-8, 8, (32, 4))
 assert np.array_equal(comb.predict(data, device='cpu'), comb.predict(data, backend='numpy'))
-from da4ml_tpu_torch.cmvm import solve_torch
+assert np.array_equal(comb.predict(data, backend='cpp'), comb.predict(data, backend='numpy'))
+from da4ml_tpu_torch.cmvm import solve, solve_torch
 w = np.array([[3., -5., 7.], [6., 1., -2.], [-4., 4., 5.]])
 sol = solve_torch(w, device='cpu')
 assert np.array_equal(np.asarray(sol.kernel, np.float64), w)
+assert solve(w, backend='cpp') == solve(w, backend='auto') == solve(w, backend='cpu')
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'da4ml_tpu' or m.startswith('da4ml_tpu.'))
 assert not bad, bad
 print('ok')
@@ -46,6 +48,28 @@ def test_host_solver_imports_no_torch():
     proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]
     assert proc.stdout.strip() == 'ok'
+
+
+def test_native_library_loads_without_reference_package():
+    """Loading the port's own native library (built from its own sources
+    into ``build/da4ml_tpu_torch/``) imports neither torch, jax nor
+    da4ml_tpu, and maps no library of da4ml_tpu into the process."""
+    code = (
+        'import sys; from da4ml_tpu_torch.native import bindings; lib = bindings.load_lib(); '
+        'assert lib is not None, bindings.load_error(); '
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "da4ml_tpu", "torch")); assert not bad, bad; '
+        'maps = open("/proc/self/maps").read(); assert "da4ml_tpu/native" not in maps; '
+        'assert "build/da4ml_tpu_torch/libda4ml_native_" in lib._name, lib._name; print("ok")'
+    )
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == 'ok'
+
+
+def test_scans_cover_the_native_module():
+    native = {p.relative_to(ROOT).as_posix() for p in PORT_FILES if p.parent.name == 'native'}
+    assert {'da4ml_tpu_torch/native/__init__.py', 'da4ml_tpu_torch/native/bindings.py',
+            'da4ml_tpu_torch/native/build.py'} <= native  # fmt: skip
 
 
 @pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

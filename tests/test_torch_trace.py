@@ -78,7 +78,7 @@ def test_solve_workers_same_result():
     assert all(np.array_equal(a.to_binary(), b.to_binary()) for a, b in zip(seq.stages, par.stages))
 
 
-@pytest.mark.parametrize('backend', ['jax', 'cpp'])
+@pytest.mark.parametrize('backend', ['jax'])
 def test_solve_refuses_unported_backends(backend):
     with pytest.raises(ValueError, match='not ported'):
         tcmvm.solve(np.eye(3), backend=backend)
