@@ -22,10 +22,12 @@ on them against its plain PyTorch version:
    all eleven opcode families and wide int64 programs, at batches of 33,
    1000 and 131073 rows; one program's block takes more than 48 KB of shared
    memory, one runs two tiles a block, and one int64 program takes the
-   global-memory scratch path; prints each program's slots, phases, tiles per
-   block, warps per tile, record bytes, the occupancy API's resident warps
-   per SM, buffer path, and ptxas' registers and spills of the instantiation
-   it runs;
+   global-memory scratch path; two programs take the 24-bit-field layout
+   (65537 inputs, and over 65535 slots on the global-memory path; batches
+   of 33 and 1000); prints each program's slots, phases, tiles per block,
+   warps per tile, record layout and bytes, the occupancy API's resident
+   warps per SM, buffer path, and ptxas' registers and spills of the
+   instantiation it runs;
 4. device search (K2's main path): ``flagship_comb(backend='torch')`` traces
    and solves the flagship with the device CMVM search on the card (K2's
    launch count is reset just before and read just after; every rung call is
@@ -74,7 +76,34 @@ on them against its plain PyTorch version:
    one at the default thread count and one with ``OMP_NUM_THREADS=1``; a
    child prints the library's ``omp_get_max_threads()`` and each process
    the OpenMP runtimes it maps; all outputs must agree;
-9. checks that neither jax nor da4ml_tpu was imported.
+9. config-5 model (``bench.py``'s MLP+conv model at full size, rebuilt from
+   the port's tracer): traced with ``'cpp'`` and with ``'torch'`` on the
+   card (K2's count reset just before, read just after; no lane to the
+   host, no ``init_cache`` call), each byte-identical to the JAX package's
+   trace with the same solver (the reference's device search and native
+   solver give different programs of the same function here); every rung
+   call of the 'torch' trace through K2 and through its plain version on
+   the card, equal as in 6; 2^20 samples through ``DaisExecutor`` (K1),
+   equal to the plain version on the card and, the first 2^16, to the
+   reference interpreter; prints trace and solve seconds, K2's launches and
+   ms, K1's ms and launch shape;
+10. fusion workloads (``bench.py``'s separable conv stack and relu-attention
+   transformer block at full size): solved with ``'torch'`` on the card (no
+   lane to the host, no ``init_cache`` call) and with ``'cpp'``, and cut by
+   ``to_pipeline``; the two pipelines' stages must be byte-identical and
+   equal to the JAX package's (``FUSION_DIGESTS``), and every rung call
+   through K2 must equal its plain version on the card, as in 6; 2^16
+   samples through ``Pipeline.predict``, one K1 launch a stage, equal to the
+   stage-by-stage reference interpreter and each stage to its plain
+   version; prints stages, ops and K1 ms a stage, K2's launches and ms;
+11. wide traced program: a 256×256×1 conv front end (65536 inputs, stride
+   2, 'valid', relu, ``'cpp'``) through K1's 24-bit-field route on 2048
+   samples, equal to the plain version and the reference interpreter;
+12. checks that neither jax nor da4ml_tpu was imported.
+
+Every count is set to 0 just before its path is driven and read just after;
+the kernel line gives each kernel's main-path launches summed over the
+paths and by path.
 
 Prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -118,6 +147,31 @@ OMP_SAMPLES = 1 << 18
 CORPUS_BATCHES = (33, 1000, 131073)
 #: the wider JEDI-MLP layers of bench.py (section 2_jedi_mlp_layers), six-bit
 WIDE_LAYERS = ((16, 64), (64, 32), (32, 32), (32, 5))
+#: samples of the config-5 model through K1; its plain version runs them
+#: in chunks (its buffer is ops x rows: 19611 x 2^16 int32 is 5 GB), and the
+#: reference interpreter checks the first 2^16 (its Python loop over the
+#: ops takes about 20 s for those on a host CPU)
+MODEL_SAMPLES = 1 << 20
+MODEL_PLAIN_ROWS = 1 << 16
+MODEL_REF_SAMPLES = 1 << 16
+#: sha256 of the config-5 model's DAIS binary (little-endian int32) as the
+#: JAX package traces it (``bench.py``'s ``_trace_model(limited=False)``, on
+#: the CPU) with the native solver and with its device search. The two
+#: solvers give different programs of the same function at this size (19611
+#: ops, cost 181284, and 19610 ops, cost 181417); the port's 'cpp' and
+#: 'torch' traces must each equal the reference's with the same solver
+CONFIG5_DIGESTS = {'cpp': 'cd42f8ba2e17284848530e13056d905110beaa3902aee0775fd06ec85aed4095',
+                   'jax': 'f78231fdd335658332b5492af27b1d8fb5b8caae46c9627cc07214c672de1024'}  # fmt: skip
+#: sha256 of each fusion workload's stages (their DAIS binaries, little-endian
+#: int32, one after another; ``stages_digest``) as the JAX package cuts them
+#: (``bench.py``'s ``_run_fusion_workloads(limited=False)``), traced with its
+#: device search or with its native solver: both give these bytes
+FUSION_DIGESTS = {'conv_stack': '7cf00977d1318dfafd228253c413275aa95761035eb5f85b2c51649222bc4a6a',
+                  'transformer_block': '673ccbb34acf754becf5aebff1c5940a631b44d8848ff8f07e25654f30d7a25b'}  # fmt: skip
+#: samples of each fusion workload through its stages
+FUSION_SAMPLES = 1 << 16
+#: samples of the 256x256 conv front end through K1's 24-bit-field route
+WIDE_CONV_SAMPLES = 2048
 
 
 def card_line() -> str:
@@ -195,13 +249,13 @@ def k2_ptxas(log: str) -> dict[tuple[int, bool], tuple[int, int]]:
     return out
 
 
-def k1_ptxas(log: str) -> dict[tuple[int, bool], dict[str, int]]:
+def k1_ptxas(log: str) -> dict[tuple[int, bool, bool], dict[str, int]]:
     """ptxas' registers, spill stores and loads and stack frame of each K1
-    instantiation, keyed by (itemsize, global-memory buffer)."""
+    instantiation, keyed by (itemsize, global-memory buffer, 24-bit fields)."""
     out, key, info = {}, None, {}
     for line in log.splitlines():
-        if m := re.search(r'dais_exec_kernelI([il])Lb([01])E', line):
-            key, info = (4 if m[1] == 'i' else 8, m[2] == '1'), {}
+        if m := re.search(r'dais_exec_kernelI([il])Lb([01])ELb([01])E', line):
+            key, info = (4 if m[1] == 'i' else 8, m[2] == '1', m[3] == '1'), {}
         elif (m := re.search(r'(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads', line)) and key:
             info = {'stack': int(m[1]), 'spill_stores': int(m[2]), 'spill_loads': int(m[3])}
         elif (m := re.search(r'Used (\d+) registers', line)) and key:
@@ -211,21 +265,41 @@ def k1_ptxas(log: str) -> dict[tuple[int, bool], dict[str, int]]:
 
 def k1_shape(torch, ex, ptxas) -> tuple[str, dict]:
     """K1's launch shape for one program on card 0, as one line and a dict:
-    slots, phases, tiles per block, warps per tile (G), record bytes, resident
-    warps per SM (the occupancy API), buffer path, ptxas' report of the
-    instantiation it runs."""
+    slots, phases, tiles per block, warps per tile (G), record layout (16- or
+    24-bit slot fields) and bytes (the record and, per op on average, what
+    it reads of its pool entry), resident warps per SM (the occupancy API),
+    buffer path, ptxas' report of the instantiation it runs."""
     card = torch.device('cuda', 0)
     k = ex.kernel
-    g = k.geometry(card)
+    d, g = k.data, k.geometry(card)
     path = f'global scratch, {g.scratch_rows} rows a launch' if g.scratch_rows else 'shared memory'
-    shape = {'slots': k.n_slots, 'phases': len(k.phases), 'tiles': g.tiles, 'warps': g.warps,
-             'record_bytes': k.records.dtype.itemsize, 'resident_warps': k.occupancy(card), 'smem': g.smem,
-             'global': g.scratch_rows is not None, **ptxas[k.itemsize, g.scratch_rows is not None]}  # fmt: skip
+    shape = {'slots': d.n_slots, 'phases': len(d.phases), 'tiles': g.tiles, 'warps': g.warps,
+             'field_bits': d.field_bits, 'record_bytes': k.record_bytes, 'resident_warps': k.occupancy(card),
+             'smem': g.smem, 'global': g.scratch_rows is not None,
+             **ptxas[k.itemsize, g.scratch_rows is not None, d.field_bits == 24]}  # fmt: skip
     line = (f"{k.n_ops} ops, {ex.dtype}, {shape['slots']} slots, {shape['phases']} phases, {g.tiles} tiles x "
-            f"{g.warps} warps a block, {shape['record_bytes']}-byte records, {g.smem} B shared memory a block, "
+            f"{g.warps} warps a block, {d.field_bits}-bit slot fields, {shape['record_bytes']:.2f} record and pool "
+            f"bytes an op, {g.smem} B shared memory a block, "
             f"{shape['resident_warps']} resident warps per SM (occupancy API), {path}; ptxas {shape['registers']} "
             f"registers, {shape['spill_stores']}/{shape['spill_loads']} B spill stores/loads")  # fmt: skip
     return line, shape
+
+
+def k1_mismatch(torch, ex, prog, data, x, y_kernel, y_plain, run_program) -> str:
+    """What a K1 result that differs from its plain version looks like: the
+    words, rows and tiles that differ, whether the kernel's and the plain
+    version's rows equal the reference interpreter, and whether a second
+    launch reproduces the difference."""
+    rows = (y_kernel != y_plain).any(1).nonzero().flatten()
+    ref = run_program(prog, data[rows.cpu().numpy()])
+    scale = ex._out_scale()
+    kernel_ok = np.array_equal(y_kernel[rows].cpu().numpy().astype(np.float64) * scale, ref)
+    plain_ok = np.array_equal(y_plain[rows].cpu().numpy().astype(np.float64) * scale, ref)
+    again = torch.equal(ex.kernel.launch(x), y_plain)
+    tiles = sorted({r // 32 for r in rows.tolist()})
+    return (f'{int((y_kernel != y_plain).sum())} words differ in {len(rows)} rows, tiles {tiles[:20]} '
+            f'({len(tiles)} tiles); on those rows the kernel equals the reference interpreter: {kernel_ok}, the '
+            f'plain version: {plain_ok}; a second launch equals the plain version: {again}')
 
 
 def check_corpus(torch, DaisExecutor, cuda_backend, run_program, ptxas) -> None:
@@ -246,6 +320,14 @@ def check_corpus(torch, DaisExecutor, cuda_backend, run_program, ptxas) -> None:
     # kernel keeps its buffers in global memory, in chunks
     corpus.append(('global scratch', random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6,
                                                     n_levels=3, wide=True)))  # fmt: skip
+    # slot fields over 16 bits, so the 24-bit-field layout: a copy's input
+    # column over 0xFFFF, and two levels of add/sub whose first stays live
+    # through the second, over 65535 slots on the global-memory path
+    long_fields = ('65537 inputs', 'over 65535 slots')
+    corpus.append((long_fields[0], random_program(np.random.default_rng(0), n_in=65537, n_ops=65737,
+                                                  families=('add',))))  # fmt: skip
+    corpus.append((long_fields[1], random_program(np.random.default_rng(3), n_in=8, n_ops=170000, n_out=6, n_levels=2,
+                                                  families=('add',))))  # fmt: skip
     assert sum(ex_prog.max_width + 2 > 31 for _, ex_prog in corpus) >= 2, 'corpus must hold two wide int64 programs'
     n_checked = 0
     for name, prog in corpus:
@@ -253,18 +335,23 @@ def check_corpus(torch, DaisExecutor, cuda_backend, run_program, ptxas) -> None:
         line, shape = k1_shape(torch, ex, ptxas)
         if name == 'smem over 48K':
             assert ex.dtype == torch.int32 and shape['smem'] > 48 * 1024 and not shape['global'], shape
-        assert shape['global'] == (name == 'global scratch'), f'corpus {name}: {shape}'
+        assert shape['global'] == (name in ('global scratch', *long_fields)), f'corpus {name}: {shape}'
+        assert (shape['field_bits'] == 24) == (name in long_fields), f'corpus {name}: {shape}'
+        if name == long_fields[1]:
+            assert shape['slots'] > 0xFFFF, shape
         assert (shape['tiles'] > 1) == (name == 'two tiles a block'), f'corpus {name}: {shape}'
         assert shape['resident_warps'] > 0, f'corpus {name}: the kernel cannot launch ({shape})'
-        for batch in CORPUS_BATCHES:
+        # the plain version's buffer is ops x batch: the long programs skip
+        # the largest batch
+        for batch in CORPUS_BATCHES[:2] if name in long_fields else CORPUS_BATCHES:
             data = random_inputs(rng, prog, batch)
             x = ex.int_inputs(data)
             y_kernel = ex.kernel.launch(x)
             y_plain = ex.plain(x)
             torch.cuda.synchronize()
             if not torch.equal(y_kernel, y_plain):
-                bad = int((y_kernel != y_plain).sum())
-                raise AssertionError(f'corpus {name} batch {batch}: {bad} words differ')
+                raise AssertionError(f'corpus {name} batch {batch}: ' + k1_mismatch(torch, ex, prog, data, x, y_kernel,
+                                                                                     y_plain, run_program))  # fmt: skip
             if batch == 1000:
                 got = y_kernel.cpu().numpy().astype(np.float64) * ex._out_scale()
                 if not np.array_equal(got, run_program(prog, data)):
@@ -486,7 +573,8 @@ def run_dais_flagship(torch, comb, card: str, ptxas) -> dict:
     print(f'[{card}] flagship dais_exec: {line}')
     assert shape['resident_warps'] >= 24, f'flagship: {shape["resident_warps"]} resident warps per SM, want 24'
     compact = {cuda_backend.LOWERINGS[f] for f in cuda_backend.COMPACT}
-    assert shape['record_bytes'] <= 16 and set(ex.kernel.fam.tolist()) <= compact, 'flagship records need the pool'
+    assert shape['field_bits'] == 16 and shape['record_bytes'] == 16, f'flagship records need the pool: {shape}'
+    assert set(ex.kernel.data.fam.tolist()) <= compact, 'flagship records need the pool'
     ms = cuda_ms(lambda: ex.fn_int(x), reps=20)
     plain_ms = cuda_ms(lambda: ex.plain(x), reps=5)
     n_bytes, int_ops = ex.kernel.work(FLAGSHIP_SAMPLES)
@@ -494,9 +582,9 @@ def run_dais_flagship(torch, comb, card: str, ptxas) -> dict:
     bound_ms, bound_by = (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
     smem_ms = 3 * prog.n_ops * FLAGSHIP_SAMPLES * ex.kernel.itemsize / SMEM_BYTES_PER_S * 1e3
     print(f'[{card}] dais_exec: {ms:.4f} ms for {FLAGSHIP_SAMPLES} samples ({FLAGSHIP_SAMPLES / ms * 1e3:.4g} samples/s), '
-          f'{prog.n_ops} ops, {ex.kernel.n_slots} slots, {len(ex.kernel.phases)} phases')  # fmt: skip
+          f'{prog.n_ops} ops, {ex.kernel.data.n_slots} slots, {len(ex.kernel.data.phases)} phases')  # fmt: skip
     print(f'[{card}] plain level version: {plain_ms:.4f} ms; bound {bound_ms:.4f} ms by {bound_by} '
-          f'(int ALU {ops_ms:.4f} ms for {ex.kernel.int_ops_per_sample} operations per sample, HBM {bytes_ms:.4f} ms; '
+          f'(int ALU {ops_ms:.4f} ms for {ex.kernel.data.int_ops_per_sample} operations per sample, HBM {bytes_ms:.4f} ms; '
           f'shared-memory traffic {smem_ms:.4f} ms)')  # fmt: skip
     print(f'[{card}] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB')
     k1_scheme_scan(torch, prog, x, y_plain, ptxas, card)
@@ -719,13 +807,13 @@ def k2_geometry(torch, fused_cse, P: int, O: int, B: int, K: int, ptxas) -> dict
             'stack': stack}  # fmt: skip
 
 
-def check_rung(torch, ts, fused_cse, inputs, spec, name: str, phases: bool = False) -> dict:
+def check_rung(torch, ts, fused_cse, inputs, spec, name: str, phases: bool = False, timed: bool = True) -> dict:
     """One rung through K2 and through its plain version on the card, both
-    from the same cache-less inputs: all five outputs must be equal. Also
-    K2's and the plain version's milliseconds (CUDA events; K2's launch
-    alone, its wrapper's checks and allocations made before the span), the
-    rung's work for its bound, and with ``phases`` the clock cycles of K2's
-    phases from its phase-timing build."""
+    from the same cache-less inputs: all five outputs must be equal. With
+    ``timed``, also K2's and the plain version's milliseconds (CUDA events;
+    K2's launch alone, its wrapper's checks and allocations made before the
+    span) and the rung's work for its bound, and with ``phases`` the clock
+    cycles of K2's phases from its phase-timing build."""
     dev_in = ts.rung_inputs(*inputs, spec, device='cuda')
 
     def fresh():  # both update the state in place
@@ -745,6 +833,8 @@ def check_rung(torch, ts, fused_cse, inputs, spec, name: str, phases: bool = Fal
         'max_iters': int(done.max()), 'chains': sum(int((rec[n, :k, 0] == rec[n, :k, 1]).sum()) for n, k in enumerate(done)),
         'max_abs_err': max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want) if g.numel()),
     }  # fmt: skip
+    if not timed:
+        return out
     out['ms'] = cuda_ms(fused_cse.run, reps=5, fresh=lambda: [fused_cse.prepare(*fresh(), spec)])
     out['plain_ms'] = cuda_ms(lambda *a: ts.rung_plain(*a, spec), reps=3, fresh=fresh)
     if phases:
@@ -798,6 +888,299 @@ def phase_line(ph: dict) -> str:
     return f'cache build {build} cycles; {it} iterations of {loop / it:.0f} cycles: {parts}'
 
 
+# ---------------------------------------------------------------------------
+# traced workloads: the config-5 model, the fusion workloads, a wide program
+# ---------------------------------------------------------------------------
+
+
+def config5_model(backend: str, **opts):
+    """``bench.py``'s config-5 model (``_trace_model(limited=False)``) from
+    the port's tracer: an 8×8×3 input, a 3×3 'same' conv to 8 channels, relu,
+    a 2×2 max-pool, dense 32, relu, dense 5; weights from ``default_rng(5)``."""
+    from da4ml_tpu_torch.trace import FixedVariableArrayInput, HWConfig, comb_trace
+    from da4ml_tpu_torch.trace.ops import conv2d, max_pool2d
+
+    rng = np.random.default_rng(5)
+    side, cin, cmid, dense = 8, 3, 8, 32
+    flat = (side // 2) ** 2 * cmid
+    w1 = rng.integers(-32, 32, (3, 3, cin, cmid)).astype(np.float64)
+    w2 = rng.integers(-32, 32, (flat, dense)).astype(np.float64)
+    w3 = rng.integers(-32, 32, (dense, 5)).astype(np.float64)
+    shape = (side, side, cin)
+    inp = FixedVariableArrayInput(shape, hwconf=HWConfig(1, -1, -1), solver_options={'backend': backend, **opts})
+    x = inp.quantize(np.ones(shape), np.full(shape, 3), np.full(shape, 2))
+    x = conv2d(x, w1, padding='same')
+    x = x.relu(i=np.full(x.shape, 6), f=np.full(x.shape, 2))
+    x = max_pool2d(x, 2).reshape(-1)
+    x = (x @ w2).relu(i=np.full(dense, 7), f=np.full(dense, 2))
+    return comb_trace(inp, x @ w3)
+
+
+def fusion_workloads(**opts) -> dict:
+    """``bench.py``'s fusion workloads at full size (``_run_fusion_workloads
+    (limited=False)``) from the port's tracer, cut into pipelines:
+    ``{name: Pipeline}``; weights from ``default_rng(23)`` in bench.py's
+    order. The separable conv stack is cut at latency 6, the relu-attention
+    transformer block (T 8, D 8, F 16) at 8, without retiming, as there."""
+    from da4ml_tpu_torch.trace import FixedVariableArrayInput, HWConfig, comb_trace, to_pipeline
+    from da4ml_tpu_torch.trace.ops import conv2d, depthwise_conv2d, einsum, quantize, relu
+
+    rng = np.random.default_rng(23)
+    shape = (5, 5, 2)
+    inp = FixedVariableArrayInput(shape, hwconf=HWConfig(1, -1, 6), solver_options=opts)
+    x = inp.quantize(np.ones(shape), np.full(shape, 2), np.zeros(shape, np.int64))
+    h = relu(depthwise_conv2d(x, rng.integers(-3, 4, (3, 3, 2, 1)).astype(np.float64)), i=3, f=0)
+    h = relu(conv2d(h, rng.integers(-3, 4, (1, 1, 2, 3)).astype(np.float64)), i=3, f=0)
+    h = relu(depthwise_conv2d(h, rng.integers(-2, 3, (2, 2, 3, 1)).astype(np.float64)), i=3, f=0)
+    out = conv2d(h, rng.integers(-3, 4, (1, 1, 3, 2)).astype(np.float64))
+    conv_stack = to_pipeline(comb_trace(inp, out), 6, retiming=False)
+
+    T, D, F = 8, 8, 16
+    inp = FixedVariableArrayInput((T, D), hwconf=HWConfig(1, -1, 8), solver_options=opts)
+    x = inp.quantize(np.ones((T, D)), np.full((T, D), 2), np.zeros((T, D), np.int64))
+    wq, wk, wv = (rng.integers(-2, 3, (D, D)).astype(np.float64) for _ in range(3))
+    q = quantize(einsum('td,df->tf', x, wq), 1, 3, 0)
+    k = quantize(einsum('td,df->tf', x, wk), 1, 3, 0)
+    v = quantize(einsum('td,df->tf', x, wv), 1, 3, 0)
+    scores = relu(einsum('td,sd->ts', q, k), i=3, f=0)  # relu-attention, no softmax
+    h = quantize(x + quantize(einsum('ts,sd->td', scores, v), 1, 3, 0), 1, 3, 0)
+    w1 = rng.integers(-2, 3, (D, F)).astype(np.float64)
+    w2 = rng.integers(-2, 3, (F, D)).astype(np.float64)
+    ffn = quantize(einsum('tf,fd->td', relu(einsum('td,df->tf', h, w1), i=3, f=0), w2), 1, 3, 0)
+    block = to_pipeline(comb_trace(inp, quantize(h + ffn, 1, 3, 0)), 8, retiming=False)
+    return {'conv_stack': conv_stack, 'transformer_block': block}
+
+
+def wide_conv_front_end():
+    """A conv front end over one 256×256 single-channel image: 3×3 kernel to
+    one channel, stride 2, 'valid', then relu; weights from
+    ``default_rng(256)``, solved by the native solver. 65536 inputs."""
+    from da4ml_tpu_torch.trace import FixedVariableArrayInput, HWConfig, comb_trace
+    from da4ml_tpu_torch.trace.ops import conv2d, relu
+
+    w = np.random.default_rng(256).integers(-8, 8, (3, 3, 1, 1)).astype(np.float64)
+    shape = (256, 256, 1)
+    inp = FixedVariableArrayInput(shape, hwconf=HWConfig(1, -1, -1), solver_options={'backend': 'cpp'})
+    x = inp.quantize(np.ones(shape), np.full(shape, 3), np.full(shape, 2))
+    return comb_trace(inp, relu(conv2d(x, w, strides=(2, 2), padding='valid')))
+
+
+def k1_equal_plain(torch, ex, x, chunk: int) -> float:
+    """K1 (``fn_int``) against its plain version on the card, ``chunk`` rows
+    at a time (the plain version's buffer is ops x rows); raises on any
+    difference; returns the largest absolute difference (0)."""
+    err = 0.0
+    for r0 in range(0, x.shape[0], chunk):
+        xs = x[r0 : r0 + chunk]
+        got, want = ex.fn_int(xs), ex.plain(xs)
+        if not torch.equal(got, want):
+            raise AssertionError(f'K1 differs from its plain version in {int((got != want).sum())} words (rows {r0}+)')
+        err = max(err, float((got.double() - want.double()).abs().max()))
+    return err
+
+
+def reference_equal(prog, data, y, chunk: int = 1 << 16) -> None:
+    """The executor's output ``y`` equals the reference interpreter's on the
+    host, ``chunk`` rows at a time."""
+    from da4ml_tpu_torch.runtime.reference import run_program
+
+    for r0 in range(0, len(data), chunk):
+        if not np.array_equal(y[r0 : r0 + chunk], run_program(prog, data[r0 : r0 + chunk])):
+            raise AssertionError(f'K1 disagrees with the reference interpreter (rows {r0}+)')
+
+
+def k2_rung_ms(torch, ts, fused_cse, rungs) -> float:
+    """Summed CUDA-event milliseconds of K2 over recorded rung calls."""
+    total = 0.0
+    for inputs, spec in rungs.calls:
+        dev_in = ts.rung_inputs(*inputs, spec, device='cuda')
+        total += cuda_ms(fused_cse.run, reps=3, fresh=lambda: [fused_cse.prepare(*[t.clone() for t in dev_in], spec)])
+    return total
+
+
+def run_config5(torch, ts, fused_cse, native, card: str, ptxas) -> dict:
+    """The config-5 model at full size: traced with the native solver and
+    with the device search on the card (K2's count reset just before, read
+    just after; no lane may go to the host and ``init_cache`` must not run),
+    each byte-identical to the JAX package's trace with the same solver
+    (``CONFIG5_DIGESTS``); then 2^20 numpy-seeded samples through ``DaisExecutor``
+    (K1's count reset just before, read just after), equal to the plain
+    version on the card (``MODEL_PLAIN_ROWS`` rows at a time) and, the first
+    ``MODEL_REF_SAMPLES``, to the reference interpreter on the host. Returns
+    the main-path launches of K1 and K2."""
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+
+    t0 = time.perf_counter()
+    comb_cpp = config5_model('cpp')
+    cpp_s = time.perf_counter() - t0
+    pmax0 = ts.search_stats['pmax_host_fallbacks']
+    clock, clock_s = host_clock(ts, native)
+    with RungRecorder(ts, fused_cse) as rungs, clock:
+        fused_cse.reset_counts()
+        t0 = time.perf_counter()
+        comb_dev = config5_model('torch')
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        k2_launches = fused_cse.launches
+    pmax_routes = ts.search_stats['pmax_host_fallbacks'] - pmax0
+    assert k2_launches == len(rungs.calls) > 0, 'config 5: K2 must launch once per rung call'
+    assert rungs.init_cache_calls == 0, 'config 5: the device search built a score cache outside K2'
+    assert pmax_routes == 0, f'config 5: {pmax_routes} lanes went to the host solver'
+    digests = {k: hashlib.sha256(c.to_binary().astype('<i4').tobytes()).hexdigest()
+               for k, c in (('cpp', comb_cpp), ('torch', comb_dev))}  # fmt: skip
+    assert digests['cpp'] == CONFIG5_DIGESTS['cpp'], f"config 5: the 'cpp' trace differs from the reference's: {digests}"
+    assert digests['torch'] == CONFIG5_DIGESTS['jax'], f"config 5: the 'torch' trace differs from the reference's: {digests}"
+    checked = [check_rung(torch, ts, fused_cse, inp, spec, f'config 5 {k}', timed=False)
+               for k, (inp, spec) in enumerate(rungs.calls)]  # fmt: skip
+    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs)
+    print(f"config 5 (8x8x3 conv, max-pool, dense 32, dense 5): 'cpp' trace {cpp_s:.3f} s ({len(comb_cpp.ops)} ops, "
+          f"cost {comb_cpp.cost}); 'torch' trace {dev_s:.3f} s on the card, of which solve {clock_s['solve']:.3f} s "
+          f"(tracing {dev_s - clock_s['solve']:.3f} s); {len(rungs.calls)} rung calls, K2 launched {k2_launches} times, "
+          f"{k2_ms:.4f} ms on the card, each rung call ({sum(r['iters'] for r in checked)} iterations) equal to its "
+          f"plain version on the card; no init_cache call, no host lane; {len(comb_dev.ops)} ops, cost {comb_dev.cost}; "
+          f"each program byte-identical to the JAX package's trace with the same solver ('cpp'; 'jax' for 'torch')",
+          flush=True)  # fmt: skip
+
+    prog = decode(comb_dev.to_binary())
+    data = np.random.default_rng(20261018).uniform(-8, 8, (MODEL_SAMPLES, prog.n_in))
+    ex = DaisExecutor(prog)
+    cuda_backend.reset_counts()
+    y = ex(data)
+    torch.cuda.synchronize()
+    launches = cuda_backend.launches
+    assert launches > 0 and y.shape == (MODEL_SAMPLES, prog.n_out) and np.isfinite(y).all()
+    x = ex.int_inputs(data)
+    err = k1_equal_plain(torch, ex, x, MODEL_PLAIN_ROWS)
+    reference_equal(prog, data[:MODEL_REF_SAMPLES], y[:MODEL_REF_SAMPLES])
+    # the two solvers' programs compute the same function
+    reference_equal(decode(comb_cpp.to_binary()), data[:MODEL_REF_SAMPLES], y[:MODEL_REF_SAMPLES])
+    line, _ = k1_shape(torch, ex, ptxas)
+    ms = cuda_ms(lambda: ex.fn_int(x), reps=10)
+    plain_ms = cuda_ms(lambda: ex.plain(x[:MODEL_PLAIN_ROWS]), reps=3)
+    n_bytes, int_ops = ex.kernel.work(MODEL_SAMPLES)
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+    print(f'[{card}] config 5 dais_exec: {line}')
+    print(f'[{card}] config 5: K1 {ms:.4f} ms for {MODEL_SAMPLES} samples ({launches} launches on the main path), '
+          f'plain version {plain_ms:.4f} ms for {MODEL_PLAIN_ROWS}; bound {bound_ms:.4f} ms; all samples equal to the '
+          f"plain version (max abs err {err}), the first {MODEL_REF_SAMPLES} to the reference interpreter on this "
+          f"program and on the 'cpp' one", flush=True)  # fmt: skip
+    return {'k1_launches': launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked)}
+
+
+def stages_digest(pipe) -> str:
+    """sha256 of a pipeline's stages: their DAIS binaries (little-endian
+    int32), one after another."""
+    h = hashlib.sha256()
+    for stage in pipe.stages:
+        h.update(stage.to_binary().astype('<i4').tobytes())
+    return h.hexdigest()
+
+
+def run_fusion(torch, ts, fused_cse, card: str) -> dict:
+    """The fusion workloads at full size, solved by the device search on the
+    card (K2's count reset just before, read just after; no lane may go to
+    the host and ``init_cache`` must not run) and by the native solver: the
+    two pipelines' stages byte-identical and equal to the JAX package's
+    (``FUSION_DIGESTS``), every rung call through K2 equal to its plain
+    version on the card; then ``FUSION_SAMPLES`` samples through
+    ``Pipeline.predict(backend='torch')``, one K1 launch a stage (K1's count
+    reset just before, read just after), equal to the stage-by-stage
+    reference interpreter and each stage to its plain version on the card.
+    Returns the main-path launches and K2's largest difference."""
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.reference import run_program
+    from da4ml_tpu_torch.runtime.torch_backend import executor_for_binary
+
+    pmax0 = ts.search_stats['pmax_host_fallbacks']
+    with RungRecorder(ts, fused_cse) as rungs:
+        fused_cse.reset_counts()
+        t0 = time.perf_counter()
+        pipes = fusion_workloads(backend='torch')
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        k2_launches = fused_cse.launches
+    pmax_routes = ts.search_stats['pmax_host_fallbacks'] - pmax0
+    assert k2_launches == len(rungs.calls) > 0, 'fusion: K2 must launch once per rung call'
+    assert rungs.init_cache_calls == 0, 'fusion: the device search built a score cache outside K2'
+    assert pmax_routes == 0, f'fusion: {pmax_routes} lanes went to the host solver'
+    host = fusion_workloads(backend='cpp')
+    for name, pipe in pipes.items():
+        digest = stages_digest(pipe)
+        assert digest == stages_digest(host[name]), f"fusion {name}: the 'torch' and 'cpp' stages differ"
+        assert digest == FUSION_DIGESTS[name], f"fusion {name}: the stages differ from the reference's ({digest})"
+    checked = [check_rung(torch, ts, fused_cse, inp, spec, f'fusion {k}', timed=False)
+               for k, (inp, spec) in enumerate(rungs.calls)]  # fmt: skip
+    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs)
+    print(f"fusion workloads: traced and solved on the card in {dev_s:.3f} s, K2 launched {k2_launches} times, "
+          f"{k2_ms:.4f} ms on the card, each rung call ({sum(r['iters'] for r in checked)} iterations) equal to its "
+          f"plain version on the card; no init_cache call, no host lane; stages byte-identical to the 'cpp' trace's "
+          f"and the JAX package's", flush=True)  # fmt: skip
+    k1_launches = 0
+    rng = np.random.default_rng(20261019)
+    for name, pipe in pipes.items():
+        data = rng.uniform(-4, 4, (FUSION_SAMPLES, pipe.shape[0]))
+        cuda_backend.reset_counts()
+        y = pipe.predict(data, backend='torch')
+        torch.cuda.synchronize()
+        launches = cuda_backend.launches
+        k1_launches += launches
+        assert launches >= len(pipe.stages), f'{name}: {launches} K1 launches for {len(pipe.stages)} stages'
+        want, per_stage = data, []
+        for stage in pipe.stages:
+            binary = stage.to_binary()
+            ex = executor_for_binary(binary)
+            x = ex.int_inputs(want)
+            k1_equal_plain(torch, ex, x, FUSION_SAMPLES)
+            per_stage.append((len(stage.ops), cuda_ms(lambda: ex.fn_int(x), reps=10)))
+            want = run_program(decode(binary), want)
+        assert np.array_equal(y, want), f'{name}: the staged K1 run disagrees with the reference interpreter'
+        stages = ', '.join(f'{n} ops {ms:.4f} ms' for n, ms in per_stage)
+        print(f'[{card}] fusion {name}: {len(pipe.stages)} stages, {launches} K1 launches for {FUSION_SAMPLES} '
+              f'samples; per stage {stages}; equal to the plain version and the stage-by-stage reference',
+              flush=True)  # fmt: skip
+    return {'k1_launches': k1_launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked)}
+
+
+def run_wide_conv(torch, card: str, ptxas) -> dict:
+    """The 256×256 conv front end (65536 inputs), traced with the native
+    solver, through K1's 24-bit-field route on ``WIDE_CONV_SAMPLES`` samples
+    (K1's count reset just before, read just after), equal to the plain
+    version on the card and the reference interpreter."""
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+
+    t0 = time.perf_counter()
+    comb = wide_conv_front_end()
+    trace_s = time.perf_counter() - t0
+    prog = decode(comb.to_binary())
+    data = np.random.default_rng(20261020).uniform(-8, 8, (WIDE_CONV_SAMPLES, prog.n_in))
+    ex = DaisExecutor(prog)
+    cuda_backend.reset_counts()
+    y = ex(data)
+    torch.cuda.synchronize()
+    launches, scratch_launches = cuda_backend.launches, cuda_backend.scratch_launches
+    assert launches > 0 and ex.kernel.data.field_bits == 24, (launches, ex.kernel.data.field_bits)
+    x = ex.int_inputs(data)
+    err = k1_equal_plain(torch, ex, x, WIDE_CONV_SAMPLES)
+    reference_equal(prog, data, y, chunk=512)
+    line, _ = k1_shape(torch, ex, ptxas)
+    ms = cuda_ms(lambda: ex.fn_int(x), reps=5)
+    plain_ms = cuda_ms(lambda: ex.plain(x), reps=3)
+    n_bytes, int_ops = ex.kernel.work(WIDE_CONV_SAMPLES)
+    bound_ms = max(n_bytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+    print(f"wide conv front end (256x256x1, 3x3 stride 2 'valid', relu; 'cpp'): traced in {trace_s:.3f} s (host "
+          f"clock), {prog.n_ops} ops, {prog.n_in} inputs, {prog.n_out} outputs", flush=True)  # fmt: skip
+    print(f'[{card}] wide conv dais_exec: {line}')
+    print(f'[{card}] wide conv: K1 {ms:.4f} ms for {WIDE_CONV_SAMPLES} samples ({launches} launches on the main path, '
+          f'{scratch_launches} scratch), plain version {plain_ms:.4f} ms; bound {bound_ms:.4f} ms; equal '
+          f'to the plain version (max abs err {err}) and the reference interpreter', flush=True)  # fmt: skip
+    return {'k1_launches': launches}
+
+
 def main() -> int:
     import torch
 
@@ -846,9 +1229,10 @@ def main() -> int:
         print(f'build {name}: {builds[name]:.3f} s (nvcc, sm_90a)')
         print_ptxas(log)
     k1_regs = k1_ptxas(cuda_backend.build_log)
-    assert len(k1_regs) == 4, f'ptxas reported K1 instantiations {sorted(k1_regs)}'
-    for (itemsize, glob), info in sorted(k1_regs.items()):
-        print(f'K1 int{8 * itemsize} {"global" if glob else "shared"}-memory instantiation: {info}')
+    assert len(k1_regs) == 8, f'ptxas reported K1 instantiations {sorted(k1_regs)}'
+    for (itemsize, glob, hi), info in sorted(k1_regs.items()):
+        print(f'K1 int{8 * itemsize} {"global" if glob else "shared"}-memory {24 if hi else 16}-bit-field '
+              f'instantiation: {info}')  # fmt: skip
         assert glob or info['spill_stores'] == info['spill_loads'] == 0, f'K1 int{8 * itemsize} spills: {info}'
     print(f"build fused_cse phases: {builds['fused_cse phases']:.3f} s (nvcc, sm_90a, -DFUSED_CSE_PHASES)")
     k2_regs = k2_ptxas(fused_cse.build_log)
@@ -1009,18 +1393,28 @@ def main() -> int:
     # phase 8: the native library's OpenMP runtime beside CUDA torch's
     openmp_check(torch, native, native_build, comb_dev, emit_calls, kernels)
 
-    # phase 9: the port imported nothing of JAX
+    # phases 9-11: the traced workloads through the port's tracer, K2 and K1:
+    # the config-5 model, the fusion workloads, the 256x256 conv front end
+    model = run_config5(torch, ts, fused_cse, native, card, k1_regs)
+    fusion = run_fusion(torch, ts, fused_cse, card)
+    wide_conv = run_wide_conv(torch, card, k1_regs)
+
+    # phase 12: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
+    k1_paths = {'flagship': dais['launches'], 'config5': model['k1_launches'], 'fusion': fusion['k1_launches'],
+                'wide_conv': wide_conv['k1_launches']}  # fmt: skip
+    k2_paths = {'flagship': k2_launches, 'config5': model['k2_launches'], 'fusion': fusion['k2_launches']}
     kernels_line = [
-        dais,
+        {**dais, 'launches': sum(k1_paths.values()), 'launches_by_path': k1_paths},
         {
             'name': 'fused_cse',
             'route': 'cuda',
             'source': 'da4ml_tpu_torch/csrc/fused_cse.cu',
             'replaces': 'da4ml_tpu/cmvm/fused_cse.py:108',
-            'launches': k2_launches,
-            'max_abs_err': max(r['max_abs_err'] for r in rows),
+            'launches': sum(k2_paths.values()),
+            'launches_by_path': k2_paths,
+            'max_abs_err': max(max(r['max_abs_err'] for r in rows), model['k2_err'], fusion['k2_err']),
             'ms': k2_ms,
             'plain_ms': k2_plain,
             'bound_ms': k2_bound,

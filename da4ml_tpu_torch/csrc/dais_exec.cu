@@ -50,6 +50,10 @@
 // A program whose tile does not fit in shared memory keeps the same tiles in
 // a global-memory scratch ([tile][slot][32]); the wrapper then runs the batch
 // in chunks so the scratch stays bounded.
+// A program with a slot field over 16 bits (more than 65535 input columns, or
+// slots on the global-memory path) takes the 24-bit-field layout (kHi): the
+// records stay as they are, and bits 16-23 of each slot field are in the
+// pool entry's hi word, which every op then reads.
 //
 // Semantics, copied exactly from the level lowering (jax_backend.py
 // _build_level / pallas_backend.py emitters):
@@ -111,10 +115,22 @@ __device__ __forceinline__ uint32_t rec_b(const uint4& q) { return q.y >> 16; }
 __device__ __forceinline__ uint32_t rec_ctl(const uint4& q) { return q.y & 0xFFFFu; }
 
 // The constant pool's entry of one record (EXT_DTYPES in cuda_backend.py).
+// hi: in the 24-bit-field layout, bits 16-23 of the record's slot fields:
+// dst (bits 0-7), a (8-15), b (16-23), the third operand's slot (24-31).
 template <typename T> struct Ext {
     T k0, k1, k2, k3;
-    int32_t aux, w, sg, pad;
+    int32_t aux, w, sg;
+    uint32_t hi;
 };
+
+// a slot field: its 16 record bits, and with kHi its byte `at` of hi above them
+template <bool kHi> __device__ __forceinline__ uint32_t field(uint32_t lo, uint32_t hi, int32_t at) {
+    if constexpr (kHi) {
+        return lo | (((hi >> (8 * at)) & 0xFFu) << 16);
+    } else {
+        return lo;
+    }
+}
 
 // stream: per phase a block of 16-byte units (phase_stream in
 // cuda_backend.py): a header (groups, the pool index of its first record,
@@ -224,49 +240,51 @@ template <typename T> struct Column<T, true> {
 };
 
 // One op of family kFam for one sample: read its operands from this sample's
-// column and return its value.
-template <int32_t kFam, typename T, bool kGlobal>
-__device__ __forceinline__ T eval_op(const uint4& q, const Column<T, kGlobal>& col, const T* __restrict__ xr,
-                                     const Ext<T>* __restrict__ e, const T* __restrict__ tab) {
+// column and return its value. hi: the pool entry's hi word (kHi only).
+template <int32_t kFam, typename T, bool kGlobal, bool kHi>
+__device__ __forceinline__ T eval_op(const uint4& q, uint32_t hi, const Column<T, kGlobal>& col,
+                                     const T* __restrict__ xr, const Ext<T>* __restrict__ e,
+                                     const T* __restrict__ tab) {
     const uint32_t ctl = rec_ctl(q);
+    const uint32_t a = field<kHi>(rec_a(q), hi, 1), b = field<kHi>(rec_b(q), hi, 2);
     const int32_t r = static_cast<int32_t>(q.y & 63u);
     const int32_t w = static_cast<int32_t>((ctl >> 6) & 127u), sg = static_cast<int32_t>((ctl >> 13) & 1u);
     if constexpr (kFam == FAM_copy) {
-        return wrap<T>(xr[rec_a(q)], sg, w);
+        return wrap<T>(xr[a], sg, w);
     } else if constexpr (kFam == FAM_addsub) {  // (x << l) +/- (y << r), then >> g: x * k + y * s
-        return addw<T>(mulw<T>(col.load(rec_a(q)), rec_k<T>(q)), signed_by<T>(col.load(rec_b(q)), q)) >> r;
+        return addw<T>(mulw<T>(col.load(a), rec_k<T>(q)), signed_by<T>(col.load(b), q)) >> r;
     } else if constexpr (kFam == FAM_relu || kFam == FAM_quantize) {
-        const T s = signed_by<T>(col.load(rec_a(q)), q);
+        const T s = signed_by<T>(col.load(a), q);
         const T v = wrap<T>(mulw<T>(s, rec_k<T>(q)) >> r, sg, w);
         return (kFam == FAM_relu && s < 0) ? T(0) : v;
     } else if constexpr (kFam == FAM_const_add) {
-        return addw<T>(mulw<T>(col.load(rec_a(q)), e->k1) >> e->aux, e->k2);
+        return addw<T>(mulw<T>(col.load(a), e->k1) >> e->aux, e->k2);
     } else if constexpr (kFam == FAM_const) {
         return e->k2;
     } else if constexpr (kFam == FAM_msb_mux) {
         const int32_t aux = e->aux;
-        const T xc = col.load(ctl);
+        const T xc = col.load(field<kHi>(ctl, hi, 3));
         const bool cond = ((aux >> 16) & 1) ? (xc < 0) : (xc >= e->k3);
-        const T r0 = wrap<T>(mulw<T>(col.load(rec_a(q)), e->k1) >> (aux & 0xFF), e->sg, e->w);
-        const T v1 = mulw<T>(col.load(rec_b(q)), e->k0);
+        const T r0 = wrap<T>(mulw<T>(col.load(a), e->k1) >> (aux & 0xFF), e->sg, e->w);
+        const T v1 = mulw<T>(col.load(b), e->k0);
         const T r1 = wrap<T>(mulw<T>(v1, e->k2) >> ((aux >> 8) & 0xFF), e->sg, e->w);
         return cond ? r0 : r1;
     } else if constexpr (kFam == FAM_mul) {
-        return mulw<T>(col.load(rec_a(q)), col.load(rec_b(q)));
+        return mulw<T>(col.load(a), col.load(b));
     } else if constexpr (kFam == FAM_lookup) {
-        T idx = subw<T>(col.load(rec_a(q)), e->k0);
+        T idx = subw<T>(col.load(a), e->k0);
         idx = idx < e->k1 ? e->k1 : (idx > e->k2 ? e->k2 : idx);
         return tab[idx];
     } else if constexpr (kFam == FAM_bit_unary) {
-        const T s = mulw<T>(col.load(rec_a(q)), e->k0);
+        const T s = mulw<T>(col.load(a), e->k0);
         const T mask = e->k1;
         if (e->aux == 0) return e->sg ? T(~s) : T(~s & mask);
         if (e->aux == 1) return T(s != 0);
         return T((s & mask) == mask);
     } else {
         static_assert(kFam == FAM_bit_binary, "every family has a lowering");
-        T v1 = mulw<T>(col.load(rec_a(q)), e->k0);
-        T v2 = mulw<T>(col.load(rec_b(q)), e->k1);
+        T v1 = mulw<T>(col.load(a), e->k0);
+        T v2 = mulw<T>(col.load(b), e->k1);
         if (e->aux & 1) {
             v2 = mulw<T>(v2, e->k2);
         } else {
@@ -281,19 +299,29 @@ __device__ __forceinline__ T eval_op(const uint4& q, const Column<T, kGlobal>& c
 // of kUnroll): batches of kUnroll consecutive records, batch b to warp b mod
 // G. A batch reads its records at fixed offsets, then all its operands, then
 // writes its results.
-template <int32_t kFam, typename T, bool kGlobal>
+template <int32_t kFam, typename T, bool kGlobal, bool kHi>
 __device__ __forceinline__ void run_group(const uint4* recs, int32_t n, int32_t w, int32_t G,
                                           const Column<T, kGlobal>& col, const T* __restrict__ xr,
                                           const Ext<T>* __restrict__ ext, const T* __restrict__ tab) {
     for (int32_t j = w * kUnroll; j < n; j += G * kUnroll) {
         uint4 q[kUnroll];
+        uint32_t hi[kUnroll];
         T v[kUnroll];
 #pragma unroll
-        for (int32_t u = 0; u < kUnroll; ++u) q[u] = recs[j + u];
+        for (int32_t u = 0; u < kUnroll; ++u) {
+            q[u] = recs[j + u];
+            if constexpr (kHi) {
+                hi[u] = ext[j + u].hi;
+            } else {
+                hi[u] = 0u;
+            }
+        }
 #pragma unroll
-        for (int32_t u = 0; u < kUnroll; ++u) v[u] = eval_op<kFam, T, kGlobal>(q[u], col, xr, ext + j + u, tab);
+        for (int32_t u = 0; u < kUnroll; ++u) {
+            v[u] = eval_op<kFam, T, kGlobal, kHi>(q[u], hi[u], col, xr, ext + j + u, tab);
+        }
 #pragma unroll
-        for (int32_t u = 0; u < kUnroll; ++u) col.store(rec_dst(q[u]), v[u]);
+        for (int32_t u = 0; u < kUnroll; ++u) col.store(field<kHi>(rec_dst(q[u]), hi[u], 0), v[u]);
     }
 }
 
@@ -339,9 +367,10 @@ __device__ __forceinline__ void tile_sync(int32_t t, int32_t G) {
 }
 
 // kGlobal selects where the operand buffers live: shared memory (false), or
-// the global-memory scratch of the chunked path for programs too wide for it.
-// The register budget keeps five full blocks per SM for int32, four for int64.
-template <typename T, bool kGlobal>
+// the global-memory scratch of the chunked path for programs too wide for it;
+// kHi the 24-bit-field layout. The register budget keeps five full blocks
+// per SM for int32, four for int64.
+template <typename T, bool kGlobal, bool kHi>
 __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 5 : 4) dais_exec_kernel(const Params<T> p) {
     const int32_t lane = static_cast<int32_t>(threadIdx.x) & 31, warp = static_cast<int32_t>(threadIdx.x) >> 5;
     const int32_t t = warp / p.warps, w = warp - t * p.warps;  // tile of the block, warp of the tile
@@ -390,17 +419,17 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 5 : 4) dais_exec
             const uint4* r = recs + start;
             const Ext<T>* e = ext + start;
             switch (grp & 0xFF) {
-            case FAM_copy: run_group<FAM_copy, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_addsub: run_group<FAM_addsub, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_relu: run_group<FAM_relu, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_quantize: run_group<FAM_quantize, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_const_add: run_group<FAM_const_add, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_const: run_group<FAM_const, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_msb_mux: run_group<FAM_msb_mux, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_mul: run_group<FAM_mul, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_lookup: run_group<FAM_lookup, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_bit_unary: run_group<FAM_bit_unary, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
-            case FAM_bit_binary: run_group<FAM_bit_binary, T, kGlobal>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_copy: run_group<FAM_copy, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_addsub: run_group<FAM_addsub, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_relu: run_group<FAM_relu, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_quantize: run_group<FAM_quantize, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_const_add: run_group<FAM_const_add, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_const: run_group<FAM_const, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_msb_mux: run_group<FAM_msb_mux, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_mul: run_group<FAM_mul, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_lookup: run_group<FAM_lookup, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_bit_unary: run_group<FAM_bit_unary, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
+            case FAM_bit_binary: run_group<FAM_bit_binary, T, kGlobal, kHi>(r, n, w, p.warps, col, xr, e, p.tab); break;
             default: break;  // unreachable: the host audits every family id
             }
         }
@@ -417,19 +446,19 @@ __global__ void __launch_bounds__(kMaxThreads, sizeof(T) == 4 ? 5 : 4) dais_exec
 // One instantiation's launch (p not null) or occupancy query. The dynamic
 // shared-memory size is always opted into, up to the largest size asked so
 // far on the device: without it a block may take only 48 KB.
-template <typename T, bool kGlobal>
+template <typename T, bool kGlobal, bool kHi>
 cudaError_t launch_or_occupancy(int device, const Params<T>* p, unsigned blocks, int threads, int smem,
                                 cudaStream_t stream, int* occupancy) {
     static int smem_set[kMaxDevices];
     if (device < 0 || device >= kMaxDevices) return cudaErrorInvalidValue;
     if (smem > smem_set[device]) {
-        const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(dais_exec_kernel<T, kGlobal>),
+        const cudaError_t err = cudaFuncSetAttribute(reinterpret_cast<const void*>(dais_exec_kernel<T, kGlobal, kHi>),
                                                      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
         if (err != cudaSuccess) return err;
         smem_set[device] = smem;
     }
     if (!p) {
-        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, dais_exec_kernel<T, kGlobal>, threads, smem);
+        return cudaOccupancyMaxActiveBlocksPerMultiprocessor(occupancy, dais_exec_kernel<T, kGlobal, kHi>, threads, smem);
     }
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(blocks);
@@ -438,14 +467,16 @@ cudaError_t launch_or_occupancy(int device, const Params<T>* p, unsigned blocks,
     cfg.stream = stream;
     cfg.attrs = nullptr;
     cfg.numAttrs = 0;
-    return cudaLaunchKernelEx(&cfg, dais_exec_kernel<T, kGlobal>, *p);
+    return cudaLaunchKernelEx(&cfg, dais_exec_kernel<T, kGlobal, kHi>, *p);
 }
 
 template <typename T>
-cudaError_t dispatch(int device, const Params<T>* p, bool global, unsigned blocks, int threads, int smem,
+cudaError_t dispatch(int device, const Params<T>* p, bool global, bool hi, unsigned blocks, int threads, int smem,
                      cudaStream_t stream, int* occupancy) {
-    if (global) return launch_or_occupancy<T, true>(device, p, blocks, threads, smem, stream, occupancy);
-    return launch_or_occupancy<T, false>(device, p, blocks, threads, smem, stream, occupancy);
+    if (global && hi) return launch_or_occupancy<T, true, true>(device, p, blocks, threads, smem, stream, occupancy);
+    if (global) return launch_or_occupancy<T, true, false>(device, p, blocks, threads, smem, stream, occupancy);
+    if (hi) return launch_or_occupancy<T, false, true>(device, p, blocks, threads, smem, stream, occupancy);
+    return launch_or_occupancy<T, false, false>(device, p, blocks, threads, smem, stream, occupancy);
 }
 
 // one tile's shared-memory region: its stage (mbarriers, kStages buffers of
@@ -455,13 +486,13 @@ int tile_region(int n_slots, int itemsize, int stage_units, bool global) {
 }
 
 template <typename T>
-int launch(int device, const void* stream, const void* offsets, const void* ext, const void* x, const void* outs,
-           void* y, const void* tab, void* scratch, long long batch, int n_in, int n_out, int n_phases, int n_slots,
-           int tiles, int warps, int stage_units, void* cuda_stream) {
+int launch(int device, bool hi, const void* stream, const void* offsets, const void* ext, const void* x,
+           const void* outs, void* y, const void* tab, void* scratch, long long batch, int n_in, int n_out,
+           int n_phases, int n_slots, int tiles, int warps, int stage_units, void* cuda_stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (tiles < 1 || tiles > kMaxTiles || warps < 1 || tiles * warps * kTile > kMaxThreads || stage_units < 2 ||
-        n_slots < 1 || n_slots > 0x10000 || batch < 1)
+        n_slots < 1 || n_slots > (hi ? 0x1000000 : 0x10000) || batch < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     const bool global = scratch != nullptr;
     const int region = tile_region(n_slots, static_cast<int>(sizeof(T)), stage_units, global);
@@ -471,7 +502,7 @@ int launch(int device, const void* stream, const void* offsets, const void* ext,
                       n_phases, n_slots, tiles, warps, stage_units, region};
     const long long rows = static_cast<long long>(kTile) * tiles;
     const unsigned blocks = static_cast<unsigned>((batch + rows - 1) / rows);
-    err = dispatch<T>(device, &p, global, blocks, tiles * warps * kTile, tiles * region,
+    err = dispatch<T>(device, &p, global, hi, blocks, tiles * warps * kTile, tiles * region,
                       static_cast<cudaStream_t>(cuda_stream), nullptr);
     if (err != cudaSuccess) return static_cast<int>(err);
     return static_cast<int>(cudaGetLastError());
@@ -482,26 +513,30 @@ int launch(int device, const void* stream, const void* offsets, const void* ext,
 extern "C" {
 
 // Runs a DAIS program over `batch` rows of x. wide: int64 executor (else
-// int32); scratch: the global-memory buffers, [tiles of the launch][n_slots][32]
-// values, or null to keep them in shared memory.
-int dais_exec_launch(int device, int wide, const void* stream, const void* offsets, const void* ext, const void* x,
-                     const void* outs, void* y, const void* tab, void* scratch, long long batch, int n_in, int n_out,
-                     int n_phases, int n_slots, int tiles, int warps, int stage_units, void* cuda_stream) {
+// int32); hi: the 24-bit-field layout (else 16-bit); scratch: the
+// global-memory buffers, [tiles of the launch][n_slots][32] values, or null
+// to keep them in shared memory.
+int dais_exec_launch(int device, int wide, int hi, const void* stream, const void* offsets, const void* ext,
+                     const void* x, const void* outs, void* y, const void* tab, void* scratch, long long batch,
+                     int n_in, int n_out, int n_phases, int n_slots, int tiles, int warps, int stage_units,
+                     void* cuda_stream) {
     if (wide) {
-        return launch<int64_t>(device, stream, offsets, ext, x, outs, y, tab, scratch, batch, n_in, n_out, n_phases,
-                               n_slots, tiles, warps, stage_units, cuda_stream);
+        return launch<int64_t>(device, hi != 0, stream, offsets, ext, x, outs, y, tab, scratch, batch, n_in, n_out,
+                               n_phases, n_slots, tiles, warps, stage_units, cuda_stream);
     }
-    return launch<int32_t>(device, stream, offsets, ext, x, outs, y, tab, scratch, batch, n_in, n_out, n_phases,
-                           n_slots, tiles, warps, stage_units, cuda_stream);
+    return launch<int32_t>(device, hi != 0, stream, offsets, ext, x, outs, y, tab, scratch, batch, n_in, n_out,
+                           n_phases, n_slots, tiles, warps, stage_units, cuda_stream);
 }
 
 // Blocks of `threads` threads and `smem` bytes of dynamic shared memory one
 // SM holds at once, registers included.
-int dais_exec_occupancy(int device, int wide, int global, int threads, int smem, int* blocks) {
+int dais_exec_occupancy(int device, int wide, int global, int hi, int threads, int smem, int* blocks) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (wide) return static_cast<int>(dispatch<int64_t>(device, nullptr, global != 0, 0, threads, smem, 0, blocks));
-    return static_cast<int>(dispatch<int32_t>(device, nullptr, global != 0, 0, threads, smem, 0, blocks));
+    if (wide) {
+        return static_cast<int>(dispatch<int64_t>(device, nullptr, global != 0, hi != 0, 0, threads, smem, 0, blocks));
+    }
+    return static_cast<int>(dispatch<int32_t>(device, nullptr, global != 0, hi != 0, 0, threads, smem, 0, blocks));
 }
 
 // shared memory of `device`, in bytes: what one block may use (the opt-in

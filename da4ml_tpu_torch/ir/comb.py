@@ -259,6 +259,14 @@ class Pipeline(NamedTuple):
     def shape(self):
         return self.stages[0].shape[0], self.stages[-1].shape[1]
 
+    @property
+    def inp_qint(self):
+        return self.stages[0].inp_qint
+
+    @property
+    def out_latencies(self):
+        return self.stages[-1].out_latency
+
     def __repr__(self) -> str:
         dims = [s.shape[0] for s in self.stages] + [self.shape[1]]
         lo, hi = self.latency

@@ -74,7 +74,13 @@ class LookupTable:
             self.spec, self.table = table_spec(np.asarray(values, dtype=np.float64))
 
     def lookup(self, value, qint_in: QInterval | tuple[float, float, float]):
-        """Numeric lookup: map a float value to its table entry (as float)."""
+        """Numeric lookup: map a float value to its table entry (as float).
+
+        Symbolic values (anything exposing ``.lookup``) are routed back to the
+        tracer so the op lands in the graph.
+        """
+        if hasattr(value, 'lookup') and not isinstance(value, (float, int, np.floating, np.integer)):
+            return value.lookup(self, original_qint=qint_in)
         lo, hi, step = qint_in
         assert lo <= value <= hi, f'Value {value} out of range [{lo}, {hi}]'
         index = round((value - lo) / step)

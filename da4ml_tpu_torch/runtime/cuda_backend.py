@@ -23,7 +23,10 @@ program into that data:
   families that need nothing else (``COMPACT``: copy, addsub, relu,
   quantize) are executed from the record alone; the other seven read their
   constants from a pool (``EXT_DTYPES``, one entry per record) in global
-  memory. The constants are the plain ``level`` version's;
+  memory. The constants are the plain ``level`` version's. A program whose
+  slots or input columns do not fit 16 bits takes the 24-bit-field layout
+  (``field_bits``): the same records, each slot field's bits 16-23 in its
+  pool entry's ``hi`` word, which every op then reads;
 - per phase, its record range and its (family) groups (``phase_tables``),
   and the record stream the kernel copies a phase at a time: per phase a
   16-byte header, its group words and its records (``phase_stream``).
@@ -42,6 +45,7 @@ memory).
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -121,10 +125,15 @@ REC_DTYPES = {
 #: the constant pool's entry per record (``Ext<T>`` in the source)
 EXT_DTYPES = {
     bits: np.dtype([('k0', t), ('k1', t), ('k2', t), ('k3', t), ('aux', '<i4'), ('w', '<i4'), ('sg', '<i4'),
-                    ('pad', '<i4')])
+                    ('hi', '<u4')])
     for bits, t in ((32, '<i4'), (64, '<i8'))
 }  # fmt: skip
 assert all(d.itemsize == 16 for d in REC_DTYPES.values()), 'records are 16 bytes in csrc/dais_exec.cu'
+#: the record's slot fields, in the pool entry's ``hi`` word of the 24-bit
+#: layout: bits 16-23 of field ``f`` at bits ``8 * HI_BYTE[f]``
+HI_BYTE = {'dst': 0, 'a': 1, 'b': 2, 'c': 3}
+#: the largest value a slot field holds, per layout (``field_bits``)
+FIELD_MAX = {16: 0xFFFF, 24: 0xFFFFFF}
 
 #: the op fields of the level lowering, one row per op: the constants both
 #: the compact records and the pool are packed from
@@ -134,8 +143,10 @@ WIDE_DTYPE = np.dtype(
 )  # fmt: skip
 
 #: global-memory scratch budget of the chunked path for programs too wide
-#: for shared memory
-SCRATCH_BYTES = 256 << 20
+#: for shared memory: a launch takes as many tiles as fit. 1 GiB measured
+#: faster than 256 MiB on the H100 for the config-5 model and the 256x256
+#: conv front end, which then need fewer, fuller launches (PERF.md)
+SCRATCH_BYTES = 1 << 30
 #: the largest tile buffer kept in shared memory: its records address slots
 #: by 16-bit byte offsets (``slot_unit``)
 TILE_BYTES_ON_CHIP = 1 << 16
@@ -199,12 +210,14 @@ def _nvcc() -> str:
 def compile_source(source: Path, flags: tuple[str, ...]) -> tuple[Path, str]:
     """Compile one kernel source with nvcc into a shared library under
     ``BUILD_DIR``, content-addressed by source and flags: ``(path, nvcc's
-    diagnostics)``, the diagnostics empty when that build already exists.
-    Raises with nvcc's output on failure."""
+    diagnostics)``. The diagnostics are kept beside the library, so a build
+    that already exists returns those of the run that made it. Raises with
+    nvcc's output on failure."""
     digest = hashlib.sha256(source.read_bytes() + ' '.join(flags).encode()).hexdigest()[:16]
     out = BUILD_DIR / f'lib{source.stem}_{digest}.so'
+    log_path = out.with_suffix('.log')
     if out.exists():
-        return out, ''
+        return out, log_path.read_text() if log_path.exists() else ''
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f'{out.stem}.{os.getpid()}.tmp.so')
     proc = subprocess.run([_nvcc(), *flags, '-o', str(tmp), str(source)], capture_output=True, text=True)
@@ -212,6 +225,9 @@ def compile_source(source: Path, flags: tuple[str, ...]) -> tuple[Path, str]:
     if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
         raise RuntimeError(f'nvcc failed on {source.name} with exit code {proc.returncode}:\n{log}')
+    tmp_log = out.with_name(f'{out.stem}.{os.getpid()}.tmp.log')
+    tmp_log.write_text(log)
+    os.replace(tmp_log, log_path)
     os.replace(tmp, out)
     return out, log
 
@@ -241,9 +257,9 @@ def load_library(build_fn, declare) -> ctypes.CDLL:
 def _declare(lib) -> None:
     vp, ci, pi = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_int)
     lib.dais_exec_launch.restype = ci
-    lib.dais_exec_launch.argtypes = [ci, ci] + [vp] * 8 + [ctypes.c_longlong] + [ci] * 7 + [vp]
+    lib.dais_exec_launch.argtypes = [ci] * 3 + [vp] * 8 + [ctypes.c_longlong] + [ci] * 7 + [vp]
     lib.dais_exec_occupancy.restype = ci
-    lib.dais_exec_occupancy.argtypes = [ci] * 5 + [pi]
+    lib.dais_exec_occupancy.argtypes = [ci] * 6 + [pi]
     lib.dais_device_smem.restype = ci
     lib.dais_device_smem.argtypes = [ci] + [pi] * 3
     lib.dais_error_string.restype = ctypes.c_char_p
@@ -410,10 +426,30 @@ def slot_unit(n_slots: int, itemsize: int) -> int:
     return TILE * itemsize if n_slots * TILE * itemsize <= TILE_BYTES_ON_CHIP else 1
 
 
-def pack_records(wide: np.ndarray, bits: int, unit: int = 1) -> tuple[np.ndarray, np.ndarray]:
+def slot_fields(wide: np.ndarray, unit: int = 1) -> dict[str, np.ndarray]:
+    """The slot fields of ``wide_records``' rows as the records hold them, in
+    ``unit`` (``slot_unit``): ``dst``, ``a`` (a copy's input column, which is
+    not scaled), ``b``, and ``c``, the third operand's slot, which only the
+    pool families have."""
+    copy = wide['fam'] == LOWERINGS['copy']
+    pool = ~np.isin(wide['fam'], [LOWERINGS[f] for f in COMPACT])
+    return {'dst': wide['dst'] * unit, 'a': np.where(copy, wide['a'], wide['a'] * unit), 'b': wide['b'] * unit,
+            'c': np.where(pool, wide['c'] * unit, 0)}  # fmt: skip
+
+
+def field_bits(wide: np.ndarray, unit: int = 1) -> int:
+    """The record layout ``wide_records``' rows need: 16 when every slot
+    field fits 16 bits, else 24 (``pack_records``)."""
+    return 16 if all(len(v) == 0 or v.max() <= FIELD_MAX[16] for v in slot_fields(wide, unit).values()) else 24
+
+
+def pack_records(wide: np.ndarray, bits: int, unit: int = 1, fbits: int = 16) -> tuple[np.ndarray, np.ndarray]:
     """``(records, pool)``: the 16-byte records (``REC_DTYPES[bits]``) and
     the constant pool (``EXT_DTYPES[bits]``, one entry per record) of
-    ``wide_records``' rows, their slot fields in ``unit`` (``slot_unit``).
+    ``wide_records``' rows, their slot fields in ``unit`` (``slot_unit``),
+    in the ``fbits`` layout: 16, each field whole in the record, or 24, its
+    low 16 bits in the record and bits 16-23 in the pool entry's ``hi`` word
+    (``HI_BYTE``).
 
     An addsub is ``(x * k + y * s) >> r`` with ``s`` = +1 or -1: the host
     puts the operand whose pow2 multiplier is not 1 first (for a left shift
@@ -422,7 +458,7 @@ def pack_records(wide: np.ndarray, bits: int, unit: int = 1) -> tuple[np.ndarray
     r)``, the relu's sign test on ``x * s``. The wrap width is clamped to
     ``[0, bits]``, which keeps its meaning (no wrap at ``bits`` or more; the
     constant ``-sg`` at 0 or less). Raises when a slot or input column does
-    not fit 16 bits.
+    not fit ``fbits`` bits.
     """
     fam = wide['fam']
     n = len(wide)
@@ -430,32 +466,32 @@ def pack_records(wide: np.ndarray, bits: int, unit: int = 1) -> tuple[np.ndarray
     ext = np.zeros(n, dtype=EXT_DTYPES[bits])
     is_fam = {name: fam == LOWERINGS[name] for name in LOWERINGS}
     wide = wide.copy()
-    for name in ('dst', 'a', 'b', 'c'):
-        if name != 'a':
-            wide[name] *= unit
-        else:  # a copy's first operand is an input column
-            wide[name] = np.where(is_fam['copy'], wide[name], wide[name] * unit)
-        if n and (wide[name].min() < 0 or wide[name].max() > 0xFFFF):
-            raise ValueError(f'DAIS kernel: field {name} ({wide[name].max()}) does not fit the 16-bit record')
+    for name, v in slot_fields(wide, unit).items():
+        if n and (v.min() < 0 or v.max() > FIELD_MAX[fbits]):
+            raise ValueError(f'DAIS kernel: field {name} ({v.max()}) does not fit the {fbits}-bit record fields')
+        wide[name] = v
     addsub = is_fam['addsub']
     swap = addsub & (wide['k1'] != 1) & (wide['k1'] != -1)
     if (swap & (wide['k0'] != 1)).any():
         raise ValueError('DAIS kernel: an addsub scales both operands')
-    rec['dst'] = wide['dst']
-    rec['a'] = np.where(swap, wide['b'], wide['a'])
-    rec['b'] = np.where(swap, wide['a'], wide['b'])
+    full = {'dst': wide['dst'], 'a': np.where(swap, wide['b'], wide['a']), 'b': np.where(swap, wide['a'], wide['b']),
+            'c': wide['c']}  # fmt: skip
+    for name in ('dst', 'a', 'b'):
+        rec[name] = full[name] & 0xFFFF
     k = np.where(swap, wide['k1'], np.where(addsub, wide['k0'], wide['k1']))
     s = np.where(swap, 1, np.where(addsub, wide['k1'], wide['k0']))
     compact = np.isin(fam, [LOWERINGS[f] for f in COMPACT])
     s = np.where(compact & ~is_fam['copy'], s, 1)
     k = np.where(compact & ~is_fam['copy'], k, 0)
     ctl = (wide['aux'] & 63) | (np.clip(wide['w'], 0, bits) << 6) | ((wide['sg'] != 0) << 13) | ((s == -1) << 14)
-    rec['ctl'] = np.where(compact, ctl, wide['c'])
+    rec['ctl'] = np.where(compact, ctl, full['c'] & 0xFFFF)
     rec['k'] = k
     if bits == 32:
         rec['s'] = s
     for name in ('k0', 'k1', 'k2', 'k3', 'aux', 'w', 'sg'):
         ext[name] = np.where(compact, 0, wide[name])
+    if fbits == 24:
+        ext['hi'] = sum(((full[f] >> 16) & 0xFF) << (8 * HI_BYTE[f]) for f in HI_BYTE)
     return rec, ext
 
 
@@ -615,38 +651,82 @@ def launch_geometry(n_slots: int, itemsize: int, phase_widths, smem: tuple[int, 
     return best._replace(scratch_rows=rows)
 
 
+class KernelData(NamedTuple):
+    """A program's data for the kernel (:func:`pack`)."""
+
+    phases: list[tuple[int, int]]  # (start, end) of each phase in the packed order
+    slot: np.ndarray  # buffer slot of each op
+    n_slots: int
+    fam: np.ndarray  # family of each record, in packed order
+    slot_unit: int  # what a slot field counts in (``slot_unit``)
+    field_bits: int  # 16 or 24 (``field_bits``)
+    records: np.ndarray
+    pool: np.ndarray
+    phase_table: np.ndarray
+    groups: np.ndarray
+    stream: np.ndarray
+    offsets: np.ndarray
+    stream_pool: np.ndarray
+    outs: np.ndarray  # per output: slot field, sign
+    table: np.ndarray  # the flat lookup tables
+    int_ops_per_sample: int  # ``record_ops`` summed over the records
+
+
+def pack(ex) -> KernelData:
+    """The kernel's data for executor ``ex``'s program: phases, slots by
+    phase liveness, records and the stream the kernel copies."""
+    prog, itemsize = ex.prog, np.dtype(ex.np_dtype).itemsize
+    phases = phase_bounds(ex.schedule, PHASE_OPS)
+    slot, n_slots = assign_slots(prog, ex.schedule.order, phases)
+    wide = wide_records(ex, slot)
+    unit = slot_unit(n_slots, itemsize)
+    fbits = field_bits(wide, unit)
+    records, pool = pack_records(wide, 8 * itemsize, unit, fbits)
+    phase_table, groups = phase_tables(phases, wide['fam'])
+    stream, offsets, stream_pool = phase_stream(phase_table, groups, records, pool)
+    out_idx = prog.out_idxs.astype(np.int64)
+    outs = np.stack(
+        [np.where(out_idx >= 0, slot[np.clip(out_idx, 0, max(prog.n_ops - 1, 0))], 0),
+         np.where(out_idx < 0, 0, np.where(prog.out_negs != 0, -1, 1))], axis=1,
+    ).astype(np.int64) if prog.n_ops else np.zeros((prog.n_out, 2), np.int64)  # fmt: skip
+    outs[:, 0] *= unit
+    int_ops = int(record_ops(wide['fam'], records, pool, 8 * itemsize).sum())
+    return KernelData(phases, slot, n_slots, wide['fam'], unit, fbits, records, pool, phase_table, groups, stream,
+                      offsets, stream_pool, outs, np.ascontiguousarray(ex.meta['flat_tab']), int_ops)  # fmt: skip
+
+
 class DaisKernel:
     """The CUDA kernel's wrapper for one :class:`DaisExecutor`.
 
     ``kernel(x)`` maps a (batch, n_in) integer tensor to (batch, n_out). A
     CPU tensor runs the plain ``level`` version; a CUDA tensor launches the
-    kernel, or raises — there is no fallback.
+    kernel, or raises — there is no fallback. The kernel's program data
+    (``data``: phases, slots, records, the stream) is built at the first
+    launch or the first read of ``data``, so a CPU executor never builds it.
     """
 
     def __init__(self, ex):
-        prog = ex.prog
+        self._ex = ex
         self.plain = ex.plain
         self.dtype, self.itemsize = ex.dtype, np.dtype(ex.np_dtype).itemsize
         self.bits = 8 * self.itemsize
-        self.n_in, self.n_out, self.n_ops = prog.n_in, prog.n_out, prog.n_ops
-        self.phases = phase_bounds(ex.schedule, PHASE_OPS)
-        self.slot, self.n_slots = assign_slots(prog, ex.schedule.order, self.phases)
-        wide = wide_records(ex, self.slot)
-        self.fam = wide['fam']
-        self.slot_unit = slot_unit(self.n_slots, self.itemsize)
-        self.records, self.pool = pack_records(wide, self.bits, self.slot_unit)
-        self.phase_table, self.groups = phase_tables(self.phases, self.fam)
-        self.stream, self.offsets, self.stream_pool = phase_stream(self.phase_table, self.groups, self.records,
-                                                                   self.pool)  # fmt: skip
-        out_idx = prog.out_idxs.astype(np.int64)
-        self.outs = np.stack(
-            [np.where(out_idx >= 0, self.slot[np.clip(out_idx, 0, max(self.n_ops - 1, 0))], 0),
-             np.where(out_idx < 0, 0, np.where(prog.out_negs != 0, -1, 1))], axis=1,
-        ).astype(np.int64) if self.n_ops else np.zeros((self.n_out, 2), np.int64)  # fmt: skip
-        self.outs[:, 0] *= self.slot_unit
-        self.table = np.ascontiguousarray(ex.meta['flat_tab'])
-        self.int_ops_per_sample = int(record_ops(self.fam, self.records, self.pool, self.bits).sum())
+        self.n_in, self.n_out, self.n_ops = ex.prog.n_in, ex.prog.n_out, ex.prog.n_ops
         self._dev: dict[torch.device, tuple] = {}
+
+    @functools.cached_property
+    def data(self) -> KernelData:
+        return pack(self._ex)
+
+    @property
+    def record_bytes(self) -> float:
+        """Bytes of its record and pool entry one op of a tile reads: the
+        16-byte record, plus for a pool family its whole pool entry, plus in
+        the 24-bit layout the ``hi`` word of a compact family's entry (the
+        mean over the program's ops)."""
+        d = self.data
+        compact = np.isin(d.fam, [LOWERINGS[f] for f in COMPACT])
+        extra = np.where(compact, 4 if d.field_bits == 24 else 0, d.pool.dtype.itemsize)
+        return d.records.dtype.itemsize + float(extra.mean() if len(extra) else 0)
 
     def __call__(self, x: torch.Tensor) -> torch.Tensor:
         if x.device.type == 'cpu':
@@ -657,11 +737,11 @@ class DaisKernel:
 
     @property
     def phase_widths(self) -> list[int]:
-        return [e - s for s, e in self.phases]
+        return [e - s for s, e in self.data.phases]
 
     def geometry(self, device: torch.device) -> Geometry:
         """``launch_geometry`` of this program on ``device``."""
-        return launch_geometry(self.n_slots, self.itemsize, self.phase_widths, device_smem(device))
+        return launch_geometry(self.data.n_slots, self.itemsize, self.phase_widths, device_smem(device))
 
     def occupancy(self, device: torch.device) -> int:
         """Warps per SM resident at once, as ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``
@@ -669,8 +749,8 @@ class DaisKernel:
         g = self.geometry(device)
         lib = load()
         blocks = ctypes.c_int(0)
-        rc = lib.dais_exec_occupancy(device.index, self.bits == 64, g.scratch_rows is not None, g.threads, g.smem,
-                                     ctypes.byref(blocks))  # fmt: skip
+        rc = lib.dais_exec_occupancy(device.index, self.bits == 64, g.scratch_rows is not None,
+                                     self.data.field_bits == 24, g.threads, g.smem, ctypes.byref(blocks))  # fmt: skip
         _check(lib, rc, 'cudaOccupancyMaxActiveBlocksPerMultiprocessor')
         return blocks.value * g.tiles * g.warps
 
@@ -681,9 +761,8 @@ class DaisKernel:
             def move(a):
                 return torch.from_numpy(np.ascontiguousarray(a).view(np.uint8)).to(device)
 
-            hit = self._dev[device] = tuple(
-                move(a) for a in (self.stream, self.offsets, self.stream_pool, self.outs, self.table)
-            )
+            d = self.data
+            hit = self._dev[device] = tuple(move(a) for a in (d.stream, d.offsets, d.stream_pool, d.outs, d.table))
         return hit
 
     def launch(self, x: torch.Tensor) -> torch.Tensor:
@@ -697,18 +776,18 @@ class DaisKernel:
         y = torch.empty((batch, self.n_out), dtype=self.dtype, device=device)
         if batch == 0 or self.n_out == 0:
             return y
-        lib = load()
+        lib, d = load(), self.data
         stream_, offsets, pool, outs, tab = (t.data_ptr() for t in self._on(device))
         g = self.geometry(device)
-        if (g.scratch_rows is None) != (self.slot_unit > 1):
-            raise ValueError(f'DAIS kernel: a {self.n_slots}-slot tile does not fit this device\'s shared memory')
+        if (g.scratch_rows is None) != (d.slot_unit > 1):
+            raise ValueError(f'DAIS kernel: a {d.n_slots}-slot tile does not fit this device\'s shared memory')
         stream = torch.cuda.current_stream(device).cuda_stream
 
         def run(r0: int, n: int, scratch) -> None:
             rc = lib.dais_exec_launch(
-                device.index, self.bits == 64, stream_, offsets, pool, x[r0:].data_ptr(), outs, y[r0:].data_ptr(),
-                tab, scratch, n, max(self.n_in, 1), self.n_out, len(self.phases), self.n_slots, g.tiles, g.warps,
-                g.stage_units, stream,
+                device.index, self.bits == 64, d.field_bits == 24, stream_, offsets, pool, x[r0:].data_ptr(), outs,
+                y[r0:].data_ptr(), tab, scratch, n, max(self.n_in, 1), self.n_out, len(d.phases), d.n_slots,
+                g.tiles, g.warps, g.stage_units, stream,
             )  # fmt: skip
             _check(lib, rc, 'dais_exec launch' if scratch is None else 'dais_exec launch (global-memory scratch)')
 
@@ -716,8 +795,9 @@ class DaisKernel:
             run(0, batch, None)
             launches += 1
             return y
-        rows = g.scratch_rows
-        scratch = torch.empty(rows * self.n_slots, dtype=self.dtype, device=device)
+        per_launch = TILE * g.tiles
+        rows = min(g.scratch_rows, -(-batch // per_launch) * per_launch)  # no more scratch than the batch takes
+        scratch = torch.empty(rows * d.n_slots, dtype=self.dtype, device=device)
         for r0 in range(0, batch, rows):
             run(r0, min(rows, batch - r0), scratch.data_ptr())
             launches += 1
@@ -728,4 +808,4 @@ class DaisKernel:
         """(bytes, integer ALU operations) the function needs for ``batch``
         samples: each input read once, each output written once; the ALU
         instructions ``record_ops`` counts for every op, per sample."""
-        return (self.n_in + self.n_out) * self.itemsize * batch, self.int_ops_per_sample * batch
+        return (self.n_in + self.n_out) * self.itemsize * batch, self.data.int_ops_per_sample * batch

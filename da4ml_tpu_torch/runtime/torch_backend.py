@@ -449,6 +449,8 @@ class DaisExecutor:
 
         from .cuda_backend import DaisKernel
 
+        # the wrapper packs the kernel's records at its first launch: a CPU
+        # executor never builds them
         self.kernel = DaisKernel(self)
 
     def fn_int(self, x: torch.Tensor) -> torch.Tensor:

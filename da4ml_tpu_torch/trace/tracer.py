@@ -3,21 +3,23 @@
 Three passes:
 
 1. :func:`collect_graph` — walk the ancestors of every requested output with
-   an explicit stack, order nodes by pipeline latency (stable, so insertion
-   order breaks ties), and drop nodes nothing consumes.
-2. :func:`_emit_program` — translate one node per operation through the
-   ``_ENCODERS`` registry. The free power-of-two scale and sign each node
+   an explicit stack (no recursion limit), order nodes by pipeline latency
+   (stable, so insertion order breaks ties), and drop nodes nothing consumes.
+2. :func:`_emit_program` — translate one node per opcode family through the
+   ``_ENCODERS`` registry.  The free power-of-two scale and sign each node
    carries in ``_factor`` is absorbed into the op's shift field or the
-   opcode's sign, so the emitted program only sees integer-aligned values.
-3. :func:`dead_statement_elimination` — backward reachability over the
-   emitted program followed by slot compaction.
+   opcode's sign at this point, so the emitted program only ever sees
+   integer-aligned values.
+3. :func:`dead_statement_elimination` — backward reachability over the emitted program
+   followed by slot compaction.
 
-Counterpart of ``da4ml_tpu/trace/tracer.py`` for the operations the port's
-tracer builds (add/sub, constant add, constant, wrap, relu).
+The emitted encoding is the DAIS v1 instruction set. Counterpart of
+``da4ml_tpu/trace/tracer.py``: the same program, byte for byte.
 """
 
 from __future__ import annotations
 
+import logging
 from collections.abc import Callable, Sequence
 from decimal import Decimal
 from math import log2
@@ -26,10 +28,35 @@ import numpy as np
 
 from ..ir.comb import CombLogic
 from ..ir.types import Op, QInterval
-from .fixed_variable import FixedVariable, const_f
-from .fixed_variable_array import FixedVariableArray
+from .fixed_variable import FixedVariable, const_f, table_context
+
+_logger = logging.getLogger(__name__)
+
+# ---------------------------------------------------------------------------
+# DAIS data-word packing.  Two opcodes carry packed payloads; the layout is
+# fixed by the DAIS v1 binary format and shared with pipeline.py.
+# ---------------------------------------------------------------------------
 
 _LOW32 = (1 << 32) - 1
+
+
+def pack_mux_payload(cond_slot: int, shift: int) -> int:
+    """msb_mux payload: selector slot in the low word, shift in the high word."""
+    return (shift << 32) | cond_slot
+
+
+def mux_cond_slot(data: int) -> int:
+    return data & _LOW32
+
+
+def mux_shift(data: int) -> int:
+    return (data >> 32) & _LOW32
+
+
+def pack_bitbin_payload(subop: int, neg0: bool, neg1: bool, shift: int) -> int:
+    """bit_binary payload: subop in bits 63:56, operand-negate flags in bits
+    33:32, relative shift in the low word."""
+    return (subop << 56) | (int(neg1) << 33) | (int(neg0) << 32) | (shift & _LOW32)
 
 
 def _rel_shift(f_ref, f_other) -> int:
@@ -38,12 +65,18 @@ def _rel_shift(f_ref, f_other) -> int:
     return int(log2(abs(f_other / f_ref)))
 
 
+# ---------------------------------------------------------------------------
+# Pass 1: graph collection
+# ---------------------------------------------------------------------------
+
+
 def collect_graph(inputs: Sequence[FixedVariable], outputs: Sequence[FixedVariable]):
     """Gather every node reachable from ``outputs``, plus all ``inputs``.
 
     Returns the nodes in execution order (ascending latency, ties by first
-    visit) together with a ``{node id: slot}`` map. Nodes that feed nothing
-    are removed, except for the inputs themselves.
+    visit) together with a ``{node id: slot}`` map.  Nodes that feed nothing
+    — possible when an input of the trace has ancestors of its own — are
+    removed, except for the inputs themselves.
     """
     seen: dict[int, FixedVariable] = {v.id: v for v in inputs}
     input_ids = frozenset(seen)
@@ -78,14 +111,20 @@ def collect_graph(inputs: Sequence[FixedVariable], outputs: Sequence[FixedVariab
     return nodes, slot
 
 
+# ---------------------------------------------------------------------------
+# Pass 2: per-opcode encoders
+# ---------------------------------------------------------------------------
+
+
 class _EmitCtx:
     """Operand resolution for the node currently being emitted."""
 
-    __slots__ = ('slot', 'pos')
+    __slots__ = ('slot', 'pos', 'table_slot')
 
-    def __init__(self, slot: dict[int, int]):
+    def __init__(self, slot: dict[int, int], table_slot: dict[int, int]):
         self.slot = slot
         self.pos = 0
+        self.table_slot = table_slot
 
     def ref(self, operand: FixedVariable) -> int:
         """Slot of an operand, verified to precede the consumer (causality)."""
@@ -146,12 +185,66 @@ def _const(v: FixedVariable, ctx: _EmitCtx) -> Op:
     return Op(-1, -1, 5, int(lo / step), QInterval(lo, lo, step), v.latency, v.cost)
 
 
+@_encodes('msb_mux')
+def _msb_mux(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    cond, a, b = v._from
+    if cond._factor < 0:
+        raise AssertionError(f'mux selector v{cond.id} must not carry a negated factor (got {cond._factor})')
+    payload = pack_mux_payload(ctx.ref(cond), _rel_shift(a._factor, b._factor))
+    opcode = 6 if b._factor > 0 else -6
+    return Op(ctx.ref(a), ctx.ref(b), opcode, payload, v.unscaled.qint, v.latency, v.cost)
+
+
+@_encodes('vmul')
+def _vmul(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    a, b = v._from
+    return Op(ctx.ref(a), ctx.ref(b), 7, 0, v.unscaled.qint, v.latency, v.cost)
+
+
+@_encodes('lookup')
+def _lookup(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    (a,) = v._from
+    if v._data is None:
+        raise AssertionError('lookup node lost its table reference')
+    return Op(ctx.ref(a), -1, 8, ctx.table_slot[int(v._data)], v.unscaled.qint, v.latency, v.cost)
+
+
+@_encodes('bit_unary')
+def _bit_unary(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    (a,) = v._from
+    if v._data is None:
+        raise AssertionError('bit_unary node lost its sub-opcode')
+    return Op(ctx.ref(a), -1, 9 if v._factor > 0 else -9, int(v._data), v.unscaled.qint, v.latency, v.cost)
+
+
+@_encodes('bit_binary')
+def _bit_binary(v: FixedVariable, ctx: _EmitCtx) -> Op:
+    a, b = v._from
+    if v._data is None:
+        raise AssertionError('bit_binary node lost its sub-opcode')
+    payload = pack_bitbin_payload(int(v._data), a._factor < 0, b._factor < 0, _rel_shift(a._factor, b._factor))
+    return Op(ctx.ref(a), ctx.ref(b), 10, payload, v.unscaled.qint, v.latency, v.cost)
+
+
 def _emit_program(inputs: Sequence[FixedVariable], outputs: Sequence[FixedVariable]):
     nodes, slot = collect_graph(inputs, outputs)
     input_slot = {v.id: i for i, v in enumerate(inputs)}
 
+    # Register each distinct lookup table once, in first-use order.
+    tables: list = []
+    table_slot: dict[int, int] = {}
+    for nd in nodes:
+        if nd.opr != 'lookup':
+            continue
+        if nd._data is None:
+            raise AssertionError('lookup node lost its table reference')
+        gid = int(nd._data)
+        if gid not in table_slot:
+            table_slot[gid] = len(tables)
+            tables.append(table_context.get_table_from_index(gid))
+
     ops: list[Op] = []
-    ctx = _EmitCtx(slot)
+    ctx = _EmitCtx(slot, table_slot)
     for pos, nd in enumerate(nodes):
         ctx.pos = pos
         if nd.id in input_slot and nd.opr != 'const':
@@ -160,24 +253,29 @@ def _emit_program(inputs: Sequence[FixedVariable], outputs: Sequence[FixedVariab
             continue
         encode = _ENCODERS.get(nd.opr)
         if encode is None:
-            raise NotImplementedError(f'no DAIS lowering for operation {nd.opr!r} in da4ml_tpu_torch yet')
+            raise NotImplementedError(f'no DAIS lowering for operation {nd.opr!r}')
         ops.append(encode(nd, ctx))
 
     out_slots = [slot[v.id] for v in outputs]
-    return ops, out_slots
+    return ops, out_slots, tuple(tables) if tables else None
+
+
+# ---------------------------------------------------------------------------
+# Pass 3: dead-op pruning
+# ---------------------------------------------------------------------------
 
 
 def _op_reads(op: Op):
-    """Slots an op reads. For external fetches (opcode -1) ``id0`` is an input
-    lane, which liveness nevertheless marks — input lane j and its fetch op
-    occupy the same slot j whenever inputs lead the program, which
+    """Slots an op reads.  Note: for external fetches (opcode -1) ``id0`` is
+    an input lane, which liveness nevertheless marks — input lane j and its
+    fetch op occupy the same slot j whenever inputs lead the program, which
     ``collect_graph``'s ordering guarantees."""
     if op.id0 >= 0:
         yield op.id0
     if op.id1 >= 0:
         yield op.id1
     if op.opcode in (6, -6):
-        yield op.data & _LOW32
+        yield mux_cond_slot(op.data)
 
 
 def _retarget(op: Op, remap: dict[int, int]) -> Op:
@@ -185,7 +283,7 @@ def _retarget(op: Op, remap: dict[int, int]) -> Op:
         return op
     data = op.data
     if op.opcode in (6, -6):
-        data = (((data >> 32) & _LOW32) << 32) | remap[data & _LOW32]
+        data = pack_mux_payload(remap[mux_cond_slot(data)], mux_shift(data))
     return op._replace(
         id0=remap[op.id0] if op.id0 >= 0 else op.id0,
         id1=remap[op.id1] if op.id1 >= 0 else op.id1,
@@ -232,10 +330,15 @@ def dead_statement_elimination(comb: CombLogic, keep_dead_inputs: bool = False) 
     )
 
 
+# ---------------------------------------------------------------------------
+# Entry point
+# ---------------------------------------------------------------------------
+
+
 def comb_trace(inputs, outputs, keep_dead_inputs: bool = False) -> CombLogic:
     """Lower a traced computation (inputs → outputs) to a :class:`CombLogic`."""
-    ins = [inputs] if isinstance(inputs, FixedVariable) else list(np.ravel(_raw(inputs)))
-    outs = [outputs] if isinstance(outputs, FixedVariable) else list(np.ravel(_raw(outputs)))
+    ins = [inputs] if isinstance(inputs, FixedVariable) else list(np.ravel(inputs))
+    outs = [outputs] if isinstance(outputs, FixedVariable) else list(np.ravel(outputs))
 
     for v in ins:
         if v._factor <= 0:
@@ -245,7 +348,7 @@ def comb_trace(inputs, outputs, keep_dead_inputs: bool = False) -> CombLogic:
         hwconf = ins[0].hwconf
         outs = [o if isinstance(o, FixedVariable) else FixedVariable.from_const(o, hwconf, 1) for o in outs]
 
-    ops, out_slots = _emit_program(ins, outs)
+    ops, out_slots, tables = _emit_program(ins, outs)
 
     factors = [o._factor for o in outs]
     comb = CombLogic(
@@ -257,10 +360,8 @@ def comb_trace(inputs, outputs, keep_dead_inputs: bool = False) -> CombLogic:
         ops,
         outs[0].hwconf.carry_size,
         outs[0].hwconf.adder_size,
-        None,
+        tables,
     )
-    return dead_statement_elimination(comb, keep_dead_inputs)
-
-
-def _raw(x):
-    return x._vars if isinstance(x, FixedVariableArray) else x
+    result = dead_statement_elimination(comb, keep_dead_inputs)
+    _logger.debug('comb_trace: %d inputs, %d outputs, %d ops', len(ins), len(outs), len(result.ops))
+    return result

@@ -26,6 +26,13 @@ w = np.array([[3., -5., 7.], [6., 1., -2.], [-4., 4., 5.]])
 sol = solve_torch(w, device='cpu')
 assert np.array_equal(np.asarray(sol.kernel, np.float64), w)
 assert solve(w, backend='cpp') == solve(w, backend='auto') == solve(w, backend='cpu')
+from da4ml_tpu_torch.trace.ops import conv2d, max_pool2d, relu
+from da4ml_tpu_torch.trace.pipeline import to_pipeline
+img = FixedVariableArrayInput((4, 4, 1), hwconf=HWConfig(1, -1, 2))
+y = relu(conv2d(img.quantize(1, 3, 0), np.arange(-4.0, 5.0).reshape(3, 3, 1, 1)))
+pipe = to_pipeline(comb_trace(img, max_pool2d(y, 2)), 2)
+data = np.random.default_rng(1).integers(-8, 8, (16, 16)).astype(np.float64)
+assert len(pipe.stages) > 1 and np.array_equal(pipe.predict(data, device='cpu'), pipe.predict(data, backend='numpy'))
 bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.') or m == 'da4ml_tpu' or m.startswith('da4ml_tpu.'))
 assert not bad, bad
 print('ok')
@@ -70,6 +77,12 @@ def test_scans_cover_the_native_module():
     native = {p.relative_to(ROOT).as_posix() for p in PORT_FILES if p.parent.name == 'native'}
     assert {'da4ml_tpu_torch/native/__init__.py', 'da4ml_tpu_torch/native/bindings.py',
             'da4ml_tpu_torch/native/build.py'} <= native  # fmt: skip
+
+
+def test_scans_cover_the_trace_modules():
+    trace = {p.relative_to(ROOT).as_posix() for p in PORT_FILES if 'trace' in p.parts}
+    ops = ('__init__', 'conv_utils', 'einsum_utils', 'quantization', 'reduce_utils', 'sorting')
+    assert {f'da4ml_tpu_torch/trace/ops/{m}.py' for m in ops} | {'da4ml_tpu_torch/trace/pipeline.py'} <= trace
 
 
 @pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -160,13 +160,23 @@ def _eval_pool(fam, a, b, c, e, buf, table, T):
     return v1 & v2 if so == 0 else (v1 | v2 if so == 1 else v1 ^ v2)
 
 
-def _eval_record(fam, r, e, buf, x, table, T, unit=1):
+def _field(r, e, name, fbits):
+    """A record's slot field ``dst``, ``a``, ``b`` or ``c`` (``ctl`` of a pool
+    family) as ``field`` in the CUDA source reads it: the record's 16 bits,
+    and in the 24-bit layout the pool entry's ``hi`` byte above them (dst,
+    a, b, c at bytes 0 to 3)."""
+    lo = int(r['ctl'] if name == 'c' else r[name])
+    hi = (int(e['hi']) >> (8 * ('dst', 'a', 'b', 'c').index(name))) & 0xFF if fbits == 24 else 0
+    return lo | hi << 16
+
+
+def _eval_record(fam, r, e, buf, x, table, T, unit=1, fbits=16):
     """One 16-byte record (and its pool entry) for every sample, decoded as
     ``eval_op`` in the CUDA source decodes it; its slot fields count in
-    ``unit`` (``slot_unit``)."""
+    ``unit`` (``slot_unit``) and take ``fbits`` bits (``field_bits``)."""
     L = cuda_backend.LOWERINGS
     bits = np.dtype(T).itemsize * 8
-    a, b, ctl = int(r['a']), int(r['b']) // unit, int(r['ctl'])
+    a, b, ctl = _field(r, e, 'a', fbits), _field(r, e, 'b', fbits) // unit, int(r['ctl'])
     rs, w, sg = ctl & 63, (ctl >> 6) & 127, (ctl >> 13) & 1
     sign = T(int(r['s']) if bits == 32 else (-1 if (ctl >> 14) & 1 else 1))
     k = np.int64(r['k']).astype(T)
@@ -179,7 +189,7 @@ def _eval_record(fam, r, e, buf, x, table, T, unit=1):
         s = buf[a] * sign
         q = _wrap((s * k) >> rs, sg, w, T)
         return np.where(s < 0, T(0), q) if fam == L['relu'] else q
-    return _eval_pool(fam, a, b, ctl // unit, e, buf, table, T)
+    return _eval_pool(fam, a, b, _field(r, e, 'c', fbits) // unit, e, buf, table, T)
 
 
 def _eval_wide(fam, r, buf, x, table, T):
@@ -220,12 +230,12 @@ def _emulate(kernel: cuda_backend.DaisKernel, x: np.ndarray, seed: int = 0, alt=
     the orders of ``_warp_orders(seed)``. A slot written in the phase in
     which another warp still reads its old value gives a wrong answer in some
     order. ``alt`` (``stream``, ``offsets``, ``stream_pool``, ``n_slots``,
-    ``outs``, ``slot_unit``) replaces the kernel's own: another slot
+    ``outs``, ``slot_unit``) replaces the kernel's ``data``: another slot
     assignment of the same ops."""
     T = np.int64 if kernel.dtype == torch.int64 else np.int32
-    alt = alt or kernel
-    G = cuda_backend.launch_geometry(kernel.n_slots, kernel.itemsize, kernel.phase_widths, _H100_SMEM).warps
-    U, unit = cuda_backend.UNROLL, alt.slot_unit
+    alt = alt or kernel.data
+    G = cuda_backend.launch_geometry(kernel.data.n_slots, kernel.itemsize, kernel.phase_widths, _H100_SMEM).warps
+    U, unit, fbits = cuda_backend.UNROLL, alt.slot_unit, getattr(alt, 'field_bits', 16)
     buf = np.zeros((alt.n_slots, len(x)), T)
     orders = _warp_orders(G, len(alt.offsets), seed)
     with np.errstate(over='ignore'):
@@ -233,16 +243,17 @@ def _emulate(kernel: cuda_backend.DaisKernel, x: np.ndarray, seed: int = 0, alt=
             blk = alt.stream[at : at + units]
             n_groups, p0 = int(blk[0, 0]), int(blk[0, 1])
             words = blk[1:].reshape(-1)[:n_groups].astype(np.int64).tolist()
-            recs = np.ascontiguousarray(blk[1 + -(-n_groups // 4) :]).view(kernel.records.dtype).reshape(-1)
+            recs = np.ascontiguousarray(blk[1 + -(-n_groups // 4) :]).view(kernel.data.records.dtype).reshape(-1)
             for w in order.tolist():
                 for g in words:
                     fam, start, n = g & 0xFF, (g >> 8) & 0xFFF, g >> 20
                     assert n % U == 0
                     for j in range(start + w * U, start + n, G * U):
-                        vals = [_eval_record(fam, recs[i], alt.stream_pool[p0 + i], buf, x, kernel.table, T, unit)
-                                for i in range(j, j + U)]  # fmt: skip
-                        for i, v in zip(range(j, j + U), vals):
-                            buf[int(recs[i]['dst']) // unit] = v
+                        pool = alt.stream_pool[p0 + j : p0 + j + U]
+                        vals = [_eval_record(fam, r, e, buf, x, kernel.data.table, T, unit, fbits)
+                                for r, e in zip(recs[j : j + U], pool)]  # fmt: skip
+                        for r, e, v in zip(recs[j : j + U], pool, vals):
+                            buf[_field(r, e, 'dst', fbits) // unit] = v
         return np.stack([buf[int(s) // unit] * T(g) for s, g in alt.outs], axis=1)
 
 
@@ -262,7 +273,125 @@ def test_kernel_records_match_plain_version(case):
     want = ex.plain(x).numpy()
     for seed in range(4):
         assert np.array_equal(_emulate(ex.kernel, x.numpy(), seed), want), f'warp order seed {seed}'
-    assert ex.kernel.n_slots <= ex.prog.n_ops
+    assert ex.kernel.data.n_slots <= ex.prog.n_ops
+
+
+def _live_slots_program(n_live: int, n_in: int = 8, n_out: int = 6):
+    """Two levels of adds: the first, ``n_live`` sums of two inputs; the
+    second adds first-level ops ``k`` and ``n_live - 1 - k``, so at its start
+    all ``n_live`` are live at once. The last ``n_out`` second-level ops are
+    the outputs."""
+    from da4ml_tpu_torch.ir.dais_binary import DaisProgram
+
+    rng = np.random.default_rng(3)
+    n2 = n_live // 2
+    n_ops = n_in + n_live + n2
+    i32 = lambda v: np.asarray(v, np.int32)  # noqa: E731
+    l1 = n_in + np.arange(n_live)
+    id0 = np.concatenate([np.arange(n_in), rng.integers(0, n_in, n_live), l1[:n2]])
+    id1 = np.concatenate([np.full(n_in, -1), rng.integers(0, n_in, n_live), l1[::-1][:n2]])
+    opcode = np.concatenate([np.full(n_in, -1), rng.integers(0, 2, n_live + n2)])  # add or sub
+    integers = np.concatenate([np.full(n_in, 3), np.full(n_live, 4), np.full(n2, 5)])
+    zeros = np.zeros(n_ops, np.int32)
+    return DaisProgram(n_in, n_out, i32(np.zeros(n_in)), i32(np.arange(n_ops - n_out, n_ops)), i32(np.zeros(n_out)),
+                       i32(np.zeros(n_out)), i32(opcode), i32(id0), i32(id1), zeros, zeros, i32(np.ones(n_ops)),
+                       i32(integers), zeros, ())  # fmt: skip
+
+
+def _long_field_program(case: str):
+    """A program whose record fields do not fit 16 bits: 65537 input columns
+    (a copy's column over 0xFFFF), or two levels of add/sub whose first level
+    stays live through the second, over 65535 slots on the global-memory
+    path."""
+    from da4ml_tpu_torch.ir.synth import random_program as port_random_program
+
+    if case == '65537 inputs':
+        return port_random_program(np.random.default_rng(0), n_in=65537, n_ops=65737, families=('add',))
+    return _live_slots_program(0xFFFF + 64)
+
+
+_LONG_FIELD_CASES = ('65537 inputs', 'over 65535 slots')
+
+
+@pytest.fixture(scope='module')
+def long_field_executors():
+    return {case: DaisExecutor(_long_field_program(case), device='cpu') for case in _LONG_FIELD_CASES}
+
+
+def test_cpu_executor_takes_long_field_program_without_records(long_field_executors):
+    """The 65537-input program runs on the CPU, equal to the reference
+    interpreter, and a CPU executor builds no kernel records."""
+    ex = long_field_executors['65537 inputs']
+    data = random_inputs(np.random.default_rng(1), ex.prog, 5)
+    before = cuda_backend.launches
+    np.testing.assert_array_equal(ex(data), reference.run_program(ex.prog, data))
+    assert cuda_backend.launches == before
+    fresh = DaisExecutor(ex.prog, device='cpu')
+    fresh(data)
+    assert 'data' not in vars(fresh.kernel), 'a CPU executor packed the kernel records'
+
+
+@pytest.mark.parametrize('case', _LONG_FIELD_CASES)
+def test_long_field_records_match_plain_version(case, long_field_executors):
+    """Programs with a slot field over 16 bits take the 24-bit-field layout
+    and, executed from the record stream with the CUDA source's semantics,
+    equal the plain version bit for bit."""
+    ex = long_field_executors[case]
+    k = ex.kernel.data
+    assert k.field_bits == 24 and k.records.dtype.itemsize == 16
+    assert (k.pool['hi'] != 0).any()
+    data = random_inputs(np.random.default_rng(2), ex.prog, 4)
+    if case == 'over 65535 slots':
+        ex.prog.validate()
+        assert k.n_slots > 0xFFFF and k.slot_unit == 1  # the global-memory path
+        np.testing.assert_array_equal(ex(data), reference.run_program(ex.prog, data))
+    else:
+        assert ex.prog.n_in > 0xFFFF
+    x = ex.int_inputs(data)
+    assert np.array_equal(_emulate(ex.kernel, x.numpy(), seed=2), ex.plain(x).numpy())
+    with pytest.raises(ValueError, match='16-bit'):
+        cuda_backend.pack_records(cuda_backend.wide_records(ex, k.slot), ex.kernel.bits, k.slot_unit, 16)
+
+
+def test_narrow_programs_keep_16_bit_fields():
+    """The flagship and a program on the global-memory path keep the 16-bit
+    layout: no ``hi`` word."""
+    from da4ml_tpu_torch.entry import flagship_comb
+
+    comb = flagship_comb(backend='cpp')
+    ex = DaisExecutor(decode(comb.to_binary()), device='cpu')
+    assert ex.kernel.data.field_bits == 16 and ex.kernel.record_bytes == 16 and not ex.kernel.data.pool['hi'].any()
+    big = DaisExecutor(_port(random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6, n_levels=3,
+                                            wide=True)), 'cpu')  # fmt: skip
+    assert big.kernel.data.slot_unit == 1 and big.kernel.data.field_bits == 16
+
+
+@pytest.mark.parametrize('family', list(cuda_backend.LOWERINGS))
+def test_record_round_trip_24_bit_fields(family):
+    """Every family's op with slot fields and input columns on both sides of
+    0xFFFF, packed in the 24-bit layout and decoded as the kernel decodes
+    it, computes what its fields compute."""
+    rng = np.random.default_rng(95_000 + cuda_backend.LOWERINGS[family])
+    T, bits = np.int32, 32
+    wide = _edge_rows(family, bits, rng)
+    lo = 0xFFFF - 4
+    for name in ('dst', 'a', 'b', 'c'):
+        wide[name] += lo
+    assert cuda_backend.field_bits(wide) == 24
+    rec, ext = cuda_backend.pack_records(wide, bits, 1, 24)
+    info = np.iinfo(T)
+    buf = np.zeros((lo + 8, 16), T)
+    buf[lo:] = rng.integers(info.min, info.max, (8, 16), dtype=T, endpoint=True)
+    x = np.zeros((16, lo + 8), T)
+    x[:, lo:] = rng.integers(info.min, info.max, (16, 8), dtype=T, endpoint=True)
+    table = np.arange(16, dtype=T) * 3 - 7
+    fam = cuda_backend.LOWERINGS[family]
+    with np.errstate(over='ignore'):
+        for w, r, e in zip(wide, rec, ext):
+            assert _field(r, e, 'dst', 24) == w['dst']
+            want = _eval_wide(fam, w, buf, x, table, T)
+            got = _eval_record(fam, r, e, buf, x, table, T, 1, 24)
+            assert np.array_equal(got, want), (family, w)
 
 
 def _reads(prog, i: int) -> list[int]:
@@ -283,9 +412,9 @@ def test_slot_assignment_keeps_live_values():
     still reads it, and output slots survive to the end."""
     rng = np.random.default_rng(4)
     ex = DaisExecutor(_port(random_program(rng, n_ops=400, n_in=6, n_out=6)), device='cpu')
-    slot, order, prog = ex.kernel.slot, ex.schedule.order, ex.prog
+    slot, order, prog = ex.kernel.data.slot, ex.schedule.order, ex.prog
     holder = {}  # slot -> op whose value it holds
-    for s, e in ex.kernel.phases:
+    for s, e in ex.kernel.data.phases:
         ops = order[s:e].tolist()
         for i in ops:
             for j in _reads(prog, i):
@@ -298,7 +427,7 @@ def test_slot_assignment_keeps_live_values():
             holder[int(slot[i])] = i
     for j in prog.out_idxs[prog.out_idxs >= 0].tolist():
         assert holder[int(slot[j])] == j
-    assert ex.kernel.n_slots < prog.n_ops
+    assert ex.kernel.data.n_slots < prog.n_ops
 
 
 def test_group_runs_read_before_any_write():
@@ -311,7 +440,7 @@ def test_group_runs_read_before_any_write():
     writes."""
     rng = np.random.default_rng(5)
     ex = DaisExecutor(_port(random_program(rng, n_ops=500, n_in=6, n_out=6, n_levels=12)), device='cpu')
-    k = ex.kernel
+    k = ex.kernel.data
     level = ex.schedule.level[ex.schedule.order]
     assert [s for s, _ in k.phases] == [0, *(e for _, e in k.phases[:-1])] and k.phases[-1][1] == ex.prog.n_ops
     reads = {
@@ -385,9 +514,9 @@ def test_packed_order_slot_rule_fails_across_warps():
     ex = DaisExecutor(_port(random_program(rng, n_ops=400, n_in=6, n_out=6, families=('addsub',))), device='cpu')
     x = ex.int_inputs(random_inputs(rng, ex.prog, 65)).numpy()
     want = ex.plain(torch.from_numpy(x)).numpy()
-    assert cuda_backend.launch_geometry(ex.kernel.n_slots, 4, ex.kernel.phase_widths, _H100_SMEM).warps > 1
+    assert cuda_backend.launch_geometry(ex.kernel.data.n_slots, 4, ex.kernel.phase_widths, _H100_SMEM).warps > 1
     slot, n_slots = _packed_slots(ex.prog, ex.schedule.order)
-    k = ex.kernel
+    k = ex.kernel.data
     records = cuda_backend.pack_records(cuda_backend.wide_records(ex, slot), 32)[0]
     stream, offsets, pool = cuda_backend.phase_stream(k.phase_table, k.groups, records, k.pool)
     old = SimpleNamespace(stream=stream, offsets=offsets, stream_pool=pool, n_slots=n_slots, slot_unit=1,
@@ -446,16 +575,16 @@ def test_smoke_corpus_reaches_both_buffer_paths():
     from da4ml_tpu_torch.ir.synth import random_program as port_random_program
 
     big = DaisExecutor(port_random_program(np.random.default_rng(1), n_ops=1500, n_in=8, n_out=6, n_levels=5), 'cpu')
-    g = cuda_backend.launch_geometry(big.kernel.n_slots, big.kernel.itemsize, big.kernel.phase_widths, _H100_SMEM)
+    g = cuda_backend.launch_geometry(big.kernel.data.n_slots, big.kernel.itemsize, big.kernel.phase_widths, _H100_SMEM)
     assert big.dtype == torch.int32 and g.scratch_rows is None and g.smem > 48 * 1024
     wide = DaisExecutor(
         port_random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6, n_levels=3, wide=True), 'cpu'
     )
     assert wide.dtype == torch.int64
-    g = cuda_backend.launch_geometry(wide.kernel.n_slots, wide.kernel.itemsize, wide.kernel.phase_widths, _H100_SMEM)
+    g = cuda_backend.launch_geometry(wide.kernel.data.n_slots, wide.kernel.itemsize, wide.kernel.phase_widths, _H100_SMEM)
     assert g.scratch_rows is not None
     narrow = DaisExecutor(port_random_program(np.random.default_rng(0), n_ops=20, n_in=2, n_out=2, n_levels=18), 'cpu')
-    g = cuda_backend.launch_geometry(narrow.kernel.n_slots, 4, narrow.kernel.phase_widths, _H100_SMEM)
+    g = cuda_backend.launch_geometry(narrow.kernel.data.n_slots, 4, narrow.kernel.phase_widths, _H100_SMEM)
     assert (g.tiles, g.warps, g.scratch_rows) == (2, 1, None)
     rng = np.random.default_rng(6)
     for ex in (big, wide, narrow):
@@ -589,7 +718,7 @@ def test_kernel_source_audit_matches_optable():
     for name, fid in cuda_backend.LOWERINGS.items():
         assert f'FAM_{name} = {fid},' in src and f'case FAM_{name}:' in src
     assert all(d.itemsize == 16 for d in cuda_backend.REC_DTYPES.values())
-    assert re.findall(r'\n    (T k0, k1, k2, k3;\n    int32_t aux, w, sg, pad;)', src)
+    assert re.findall(r'\n    (T k0, k1, k2, k3;\n    int32_t aux, w, sg;\n    uint32_t hi;)', src)
     lib = SimpleNamespace(**{n: SimpleNamespace() for n in ('dais_exec_launch', 'dais_exec_occupancy',
                                                             'dais_device_smem', 'dais_error_string')})  # fmt: skip
     cuda_backend._declare(lib)
@@ -609,3 +738,23 @@ def test_kernel_source_parses_with_stub_headers():
     proc = subprocess.run([gxx, '-std=c++17', '-fsyntax-only', '-I', str(stub), '-x', 'c++', str(_CU)],
                           capture_output=True, text=True)  # fmt: skip
     assert proc.returncode == 0, proc.stderr
+
+
+def test_compile_source_keeps_diagnostics(tmp_path, monkeypatch):
+    """A kernel build that already exists returns the nvcc diagnostics of
+    the run that made it (the smoke run reads ptxas' report from them), and
+    nvcc runs once."""
+    calls = []
+
+    def fake_run(cmd, **kw):
+        calls.append(cmd)
+        Path(cmd[cmd.index('-o') + 1]).write_bytes(b'lib')
+        return subprocess.CompletedProcess(cmd, 0, stdout='ptxas info    : Used 48 registers\n', stderr='')
+
+    monkeypatch.setattr(cuda_backend, 'BUILD_DIR', tmp_path)
+    monkeypatch.setattr(cuda_backend, '_nvcc', lambda: 'nvcc')
+    monkeypatch.setattr(cuda_backend.subprocess, 'run', fake_run)
+    first = cuda_backend.compile_source(_CU, cuda_backend.NVCC_FLAGS)
+    again = cuda_backend.compile_source(_CU, cuda_backend.NVCC_FLAGS)
+    assert first == again and 'Used 48 registers' in first[1] and len(calls) == 1
+    assert sorted(p.name for p in tmp_path.iterdir()) == sorted([first[0].name, first[0].with_suffix('.log').name])
