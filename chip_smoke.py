@@ -44,7 +44,16 @@ on them against its plain PyTorch version:
    before, read just after) and through ``entry()``; the output must equal
    the plain version on the card and the reference interpreter on the host;
    prints its launch shape as for the corpus (at least 24 resident warps per
-   SM); times the call's host stages, and K1 and its plain version; times K1
+   SM); the call goes through the call boundary (the float64 batch up, the
+   conversion and the int->float on the card; one chunk here): its output
+   and ``BOUNDARY_REPEATS`` more calls must equal the one-launch route
+   (host conversion, one launch, ``.cpu()``), and so must
+   ``BOUNDARY_REPEATS`` calls at the reference's chunk rule (16 chunks up
+   through pinned staging on an upload stream, downloads on another stream);
+   prints both calls' times, the call by stage (upload, conversion, K1,
+   int->float, download) and the host conversion's four parts (finite
+   check, scale, floor, cast) apart;
+   times the one-launch route's host stages, and K1 and its plain version; times K1
    again with other phase sizes (one phase per level among them) and warps
    per tile, each held to the plain version; then the host runtimes on the
    same inputs, ``run_comb(backend='cpp')`` on all 2^20 samples and
@@ -85,25 +94,43 @@ on them against its plain PyTorch version:
    call of the 'torch' trace through K2 and through its plain version on
    the card, equal as in 6; 2^20 samples through ``DaisExecutor`` (K1),
    equal to the plain version on the card and, the first 2^16, to the
-   reference interpreter; prints trace and solve seconds, K2's launches and
-   ms, K1's ms and launch shape;
+   reference interpreter; a second call timed against the one-launch route
+   (host clock); prints trace and solve seconds, K2's launches and ms, K1's
+   ms and launch shape;
 10. fusion workloads (``bench.py``'s separable conv stack and relu-attention
    transformer block at full size): solved with ``'torch'`` on the card (no
    lane to the host, no ``init_cache`` call) and with ``'cpp'``, and cut by
    ``to_pipeline``; the two pipelines' stages must be byte-identical and
    equal to the JAX package's (``FUSION_DIGESTS``), and every rung call
    through K2 must equal its plain version on the card, as in 6; 2^16
-   samples through ``Pipeline.predict``, one K1 launch a stage, equal to the
-   stage-by-stage reference interpreter and each stage to its plain
-   version; prints stages, ops and K1 ms a stage, K2's launches and ms;
+   samples through ``Pipeline.predict``, one K1 launch a stage and chunk,
+   equal to the stage-by-stage reference interpreter and each stage to its
+   plain version; then through ``Pipeline.predict(backend='torch')`` with
+   ``fused=True``, ``False`` and ``'ir'`` and the per-stage host loop, each
+   equal to ``predict(backend='numpy')`` (samples/s and K1 launches of each);
+   the fused program (``fuse_binaries``) equal to the JAX package's
+   (``FUSED_DIGESTS``), its ``FusionReport``, its launch shape, K1 against its
+   plain version and ``FUSED_REPEATS`` launches on the same inputs, none
+   differing; prints stages, ops and K1 ms a stage, K2's launches and ms;
 11. wide traced program: a 256×256×1 conv front end (65536 inputs, stride
    2, 'valid', relu, ``'cpp'``) through K1's 24-bit-field route on 2048
-   samples, equal to the plain version and the reference interpreter;
-12. checks that neither jax nor da4ml_tpu was imported.
+   samples, equal to the plain version and the reference interpreter; a
+   second call timed against the one-launch route (host clock);
+12. the conversion on the card at the edges: a batch holding values beyond
+   the integer type's range (``OUT_OF_RANGE``) through the conversion of the
+   flagship (int32) and of a wide synth program (int64), word for word equal
+   to the host's ``_int_inputs``, the whole call equal to the one-launch
+   route; a NaN, an inf and a -inf refused with the host's error text;
+13. ``bench.py``'s pipeline model (16 -> 64 -> 8, cut at latency 3,
+   ``PIPELINE_SAMPLES`` samples) through the same four modes, each equal to
+   ``predict(backend='numpy')``, each stage's K1 and the fused program's
+   equal to their plain versions on the card;
+14. checks that neither jax nor da4ml_tpu was imported.
 
 Every count is set to 0 just before its path is driven and read just after;
 the kernel line gives each kernel's main-path launches summed over the
-paths and by path.
+paths and by path (K1's pipeline modes as ``fusion_<mode>`` and
+``pipeline_model_<mode>``).
 
 Prints the kernel table as one JSON line, the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
@@ -172,6 +199,20 @@ FUSION_DIGESTS = {'conv_stack': '7cf00977d1318dfafd228253c413275aa95761035eb5f85
 FUSION_SAMPLES = 1 << 16
 #: samples of the 256x256 conv front end through K1's 24-bit-field route
 WIDE_CONV_SAMPLES = 2048
+#: calls of the flagship's ``DaisExecutor.__call__`` each held to the one-launch route
+BOUNDARY_REPEATS = 20
+#: values beyond each integer type's range that the card's conversion must map
+#: as numpy's cast on the host does
+OUT_OF_RANGE = {32: (3e9, -3e9, 1e12, -1e12, 1e300, -1e300), 64: (1e19, -1e19, 1e300, -1e300)}
+#: samples of ``bench.py``'s pipeline model (its ``_run_inference_micro(limited=False)``)
+PIPELINE_SAMPLES = 262144
+#: launches of each fusion workload's fused program on the same inputs
+FUSED_REPEATS = 200
+#: sha256 of each fusion workload's fused program (``fuse_binaries`` of its
+#: stages, little-endian int32) as the JAX package fuses the stages of
+#: ``FUSION_DIGESTS``
+FUSED_DIGESTS = {'conv_stack': 'a9df9720200bd782ac8d50b105ac4b984229defc1fe315ac11d6260e594c579d',
+                 'transformer_block': '11149b1fbeb18484235367e2788275a47c5cbc2a423ef4d69ab9d1483f52b3ed'}  # fmt: skip
 
 
 def card_line() -> str:
@@ -565,9 +606,10 @@ def run_dais_flagship(torch, comb, card: str, ptxas) -> dict:
     t4 = time.perf_counter()
     y_host.astype(np.float64) * ex._out_scale()
     t5 = time.perf_counter()
-    print(f'flagship call: {call_s:.4f} s (entry(): {entry_s:.4f} s, a new executor on 64 rows); again by stage: '
-          f'float->int {t1 - t0:.4f} s, H2D {t2 - t1:.4f} s, kernel {t3 - t2:.4f} s, D2H {t4 - t3:.4f} s, '
-          f'int->float {t5 - t4:.4f} s')  # fmt: skip
+    print(f'flagship call: {call_s:.4f} s, the first through this executor (entry(): {entry_s:.4f} s, a new executor '
+          f'on 64 rows); the one-launch route by stage: float->int {t1 - t0:.4f} s, H2D {t2 - t1:.4f} s, kernel '
+          f'{t3 - t2:.4f} s, D2H {t4 - t3:.4f} s, int->float {t5 - t4:.4f} s')  # fmt: skip
+    run_boundary(torch, ex, data, y, card)
 
     line, shape = k1_shape(torch, ex, ptxas)
     print(f'[{card}] flagship dais_exec: {line}')
@@ -1054,6 +1096,7 @@ def run_config5(torch, ts, fused_cse, native, card: str, ptxas) -> dict:
     x = ex.int_inputs(data)
     err = k1_equal_plain(torch, ex, x, MODEL_PLAIN_ROWS)
     reference_equal(prog, data[:MODEL_REF_SAMPLES], y[:MODEL_REF_SAMPLES])
+    call_vs_one_launch(torch, ex, data, y, 'config 5', card)
     # the two solvers' programs compute the same function
     reference_equal(decode(comb_cpp.to_binary()), data[:MODEL_REF_SAMPLES], y[:MODEL_REF_SAMPLES])
     line, _ = k1_shape(torch, ex, ptxas)
@@ -1078,7 +1121,7 @@ def stages_digest(pipe) -> str:
     return h.hexdigest()
 
 
-def run_fusion(torch, ts, fused_cse, card: str) -> dict:
+def run_fusion(torch, ts, fused_cse, card: str, ptxas) -> dict:
     """The fusion workloads at full size, solved by the device search on the
     card (K2's count reset just before, read just after; no lane may go to
     the host and ``init_cache`` must not run) and by the native solver: the
@@ -1087,8 +1130,10 @@ def run_fusion(torch, ts, fused_cse, card: str) -> dict:
     version on the card; then ``FUSION_SAMPLES`` samples through
     ``Pipeline.predict(backend='torch')``, one K1 launch a stage (K1's count
     reset just before, read just after), equal to the stage-by-stage
-    reference interpreter and each stage to its plain version on the card.
-    Returns the main-path launches and K2's largest difference."""
+    reference interpreter and each stage to its plain version on the card;
+    then each workload through the four pipeline modes (``pipeline_modes``)
+    and its fused program (``fusion_fused``). Returns the main-path launches
+    and K2's largest difference."""
     from da4ml_tpu_torch.ir.dais_binary import decode
     from da4ml_tpu_torch.runtime import cuda_backend
     from da4ml_tpu_torch.runtime.reference import run_program
@@ -1118,7 +1163,7 @@ def run_fusion(torch, ts, fused_cse, card: str) -> dict:
           f"{k2_ms:.4f} ms on the card, each rung call ({sum(r['iters'] for r in checked)} iterations) equal to its "
           f"plain version on the card; no init_cache call, no host lane; stages byte-identical to the 'cpp' trace's "
           f"and the JAX package's", flush=True)  # fmt: skip
-    k1_launches = 0
+    k1_launches, modes = 0, {}
     rng = np.random.default_rng(20261019)
     for name, pipe in pipes.items():
         data = rng.uniform(-4, 4, (FUSION_SAMPLES, pipe.shape[0]))
@@ -1141,7 +1186,11 @@ def run_fusion(torch, ts, fused_cse, card: str) -> dict:
         print(f'[{card}] fusion {name}: {len(pipe.stages)} stages, {launches} K1 launches for {FUSION_SAMPLES} '
               f'samples; per stage {stages}; equal to the plain version and the stage-by-stage reference',
               flush=True)  # fmt: skip
-    return {'k1_launches': k1_launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked)}
+        for mode, n in pipeline_modes(torch, pipe, data, f'fusion {name}', card).items():
+            modes[mode] = modes.get(mode, 0) + n
+        fusion_fused(torch, name, pipe, data, card, ptxas)
+    return {'k1_launches': k1_launches, 'k1_modes': modes, 'k2_launches': k2_launches,
+            'k2_err': max(r['max_abs_err'] for r in checked)}  # fmt: skip
 
 
 def run_wide_conv(torch, card: str, ptxas) -> dict:
@@ -1167,6 +1216,7 @@ def run_wide_conv(torch, card: str, ptxas) -> dict:
     x = ex.int_inputs(data)
     err = k1_equal_plain(torch, ex, x, WIDE_CONV_SAMPLES)
     reference_equal(prog, data, y, chunk=512)
+    call_vs_one_launch(torch, ex, data, y, 'wide conv', card)
     line, _ = k1_shape(torch, ex, ptxas)
     ms = cuda_ms(lambda: ex.fn_int(x), reps=5)
     plain_ms = cuda_ms(lambda: ex.plain(x), reps=3)
@@ -1181,6 +1231,286 @@ def run_wide_conv(torch, card: str, ptxas) -> dict:
     return {'k1_launches': launches}
 
 
+# ---------------------------------------------------------------------------
+# the call boundary, pipelines and IR fusion
+# ---------------------------------------------------------------------------
+
+
+def one_launch_route(torch, ex, data) -> np.ndarray:
+    """The one-launch route through an executor: the host's ``_int_inputs``, one
+    upload, one ``fn_int`` over the whole batch, ``.cpu()``, the host's
+    int->float."""
+    y = ex.fn_int(ex.int_inputs(data)).cpu().numpy()
+    return y.astype(np.float64) * ex._out_scale()
+
+
+def call_vs_one_launch(torch, ex, data, y, label: str, card: str) -> None:
+    """A warm ``DaisExecutor.__call__`` (chunked, converted on the card)
+    against the one-launch route on the same batch: equal to ``y`` both;
+    prints both host times and the call's K1 launches."""
+    from da4ml_tpu_torch.runtime import cuda_backend
+
+    cuda_backend.reset_counts()
+    t0 = time.perf_counter()
+    again = ex(data)
+    call_s = time.perf_counter() - t0
+    launches = cuda_backend.launches
+    t0 = time.perf_counter()
+    old = one_launch_route(torch, ex, data)
+    old_s = time.perf_counter() - t0
+    assert np.array_equal(again, y) and np.array_equal(old, y), f'{label}: the call and the one-launch route differ'
+    print(f'[{card}] {label} call: {call_s:.4f} s ({launches} K1 launches), the one-launch route {old_s:.4f} s (host '
+          f'clock); equal', flush=True)  # fmt: skip
+
+
+def host_conversion_parts(ex, data) -> dict[str, float]:
+    """Host seconds of ``_int_inputs``' four parts on ``data``, apart:
+    ``validate_batch``'s finite check, the scale, ``np.floor``, the cast."""
+    arr = np.asarray(data, dtype=np.float64)
+    t0 = time.perf_counter()
+    finite = bool(np.isfinite(arr).all())
+    t1 = time.perf_counter()
+    scaled = arr * ex._in_scale
+    t2 = time.perf_counter()
+    floored = np.floor(scaled)
+    t3 = time.perf_counter()
+    x = floored.astype(ex.np_dtype)
+    t4 = time.perf_counter()
+    assert finite and np.array_equal(x, ex._int_inputs(data))
+    return {'finite check': t1 - t0, 'scale': t2 - t1, 'floor': t3 - t2, 'cast': t4 - t3}
+
+
+def call_stages(torch, ex, data) -> tuple[int, dict[str, float]]:
+    """``DaisExecutor.__call__``'s route by stage, each timed alone with CUDA
+    events over the whole batch (the flagship's is one chunk): the upload from
+    the caller's pageable array, the conversion on the card, K1, the
+    int->float on the card and the download into pageable memory. Returns the
+    chunk count and each stage's milliseconds."""
+    from da4ml_tpu_torch.runtime.torch_backend import _infer_chunks
+
+    card = torch.device('cuda', 0)
+    host = torch.from_numpy(np.ascontiguousarray(data))
+    xf = torch.empty(host.shape, dtype=torch.float64, device=card)
+    bad = torch.zeros((), dtype=torch.int64, device=card)
+    ms = {'upload': cuda_ms(lambda: xf.copy_(host), reps=10)}
+    ms['conversion on the card'] = cuda_ms(lambda: ex.int_inputs_on(xf, bad), reps=10)
+    xi = ex.int_inputs_on(xf, bad)
+    ms['K1'] = cuda_ms(lambda: ex.fn_int(xi), reps=10)
+    yi = ex.fn_int(xi)
+    ms['int->float on the card'] = cuda_ms(lambda: ex.float_outputs_on(yi), reps=10)
+    yf = ex.float_outputs_on(yi)
+    ms['download'] = cuda_ms(lambda: yf.cpu(), reps=10)
+    assert int(bad) == 0
+    return _infer_chunks(len(data), 8 * data.shape[1]), ms
+
+
+def repeated_calls(ex, data, want, label: str) -> list[float]:
+    """``BOUNDARY_REPEATS`` calls of ``ex`` on ``data``, each equal to
+    ``want``; returns their host seconds."""
+    call_s = []
+    for k in range(BOUNDARY_REPEATS):
+        t0 = time.perf_counter()
+        again = ex(data)
+        call_s.append(time.perf_counter() - t0)
+        assert np.array_equal(again, want), f'flagship: call {k} ({label}) differs from the one-launch route'
+    return call_s
+
+
+def run_boundary(torch, ex, data, y, card: str) -> None:
+    """The flagship behind ``DaisExecutor.__call__``'s boundary: its output
+    ``y`` equals the one-launch route, and ``BOUNDARY_REPEATS`` more calls
+    each equal it, at the port's chunk rule (one chunk here) and at the
+    reference's (1 MiB a chunk, at most 16: the staged path, its pinned
+    buffers, streams and events); prints the calls' times, the route by stage
+    and the host conversion's four parts."""
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime import torch_backend as tb
+
+    want = one_launch_route(torch, ex, data)
+    assert np.array_equal(y, want), 'flagship: the call differs from the one-launch route'
+    kept_s = repeated_calls(ex, data, want, 'the chunk rule')
+    with Patched({(tb, 'CHUNK_BYTES'): lambda _: 1 << 20, (tb, 'CHUNK_MAX'): lambda _: 16}):
+        cuda_backend.reset_counts()
+        staged_s = repeated_calls(ex, data, want, "the reference's chunk rule")
+        staged_launches = cuda_backend.launches
+    t0 = time.perf_counter()
+    one_launch_route(torch, ex, data)
+    old_s = time.perf_counter() - t0
+    nc, ms = call_stages(torch, ex, data)
+    parts = host_conversion_parts(ex, data)
+
+    def fmt(d, unit, k=1.0):
+        return ', '.join(f'{name} {v * k:.4f} {unit}' for name, v in d.items())
+
+    def spread(xs):
+        return f'median {statistics.median(xs):.4f} s (min {min(xs):.4f}, max {max(xs):.4f})'
+
+    print(f'[{card}] flagship call boundary, {len(data)} samples, {BOUNDARY_REPEATS} calls each equal to the one-launch '
+          f"route (host clock): the port's chunk rule ({nc} chunk) {spread(kept_s)}; the reference's (16 chunks "
+          f'through pinned staging, {staged_launches} K1 launches) {spread(staged_s)}; the one-launch route (host '
+          f'conversion, one upload, one launch, .cpu()) {old_s:.4f} s', flush=True)  # fmt: skip
+    print(f'[{card}] flagship call by stage, each timed alone: {fmt(ms, "ms")}')
+    print(f'flagship host float->int, apart (host clock, {cpu_model()}): {fmt(parts, "s")}; total '
+          f'{sum(parts.values()):.4f} s')  # fmt: skip
+
+
+def conversion_edges(torch, ex32, ex64) -> None:
+    """The conversion on the card on values beyond each integer type's range
+    (``OUT_OF_RANGE``): word for word equal to the host's ``_int_inputs``, as
+    is the whole call to the one-launch route; a NaN and an inf are
+    refused with the host's error text."""
+    from da4ml_tpu_torch.runtime.torch_backend import InvalidInputError, validate_batch
+
+    card = torch.device('cuda', 0)
+    for ex in (ex32, ex64):
+        bits = 8 * np.dtype(ex.np_dtype).itemsize
+        vals = np.array(OUT_OF_RANGE[bits])
+        rng = np.random.default_rng(bits)
+        batch = rng.uniform(-8, 8, (64, ex.prog.n_in))
+        rows = rng.integers(0, len(batch), 4 * len(vals))
+        batch[rows, rng.integers(0, ex.prog.n_in, len(rows))] = np.resize(vals, len(rows))
+        bad = torch.zeros((), dtype=torch.int64, device=card)
+        got = ex.int_inputs_on(torch.from_numpy(batch).to(card), bad).cpu().numpy()
+        with np.errstate(invalid='ignore'):  # numpy warns on the out-of-range cast it makes
+            want = ex._int_inputs(batch)
+            old = one_launch_route(torch, ex, batch)
+        assert int(bad) == 0 and got.dtype == want.dtype and np.array_equal(got, want), (
+            f'int{bits}: the conversion on the card differs from the host in {int((got != want).sum())} words')
+        assert np.array_equal(ex(batch), old), f'int{bits}: the call differs from the one-launch route'
+        for v in (np.nan, np.inf, -np.inf):
+            odd = batch.copy()
+            odd[3, 0] = v
+            try:
+                validate_batch(odd, ex.prog.n_in)
+            except InvalidInputError as e:
+                host_msg = str(e)
+            try:
+                ex(odd)
+            except InvalidInputError as e:
+                assert str(e) == host_msg, (str(e), host_msg)
+            else:
+                raise AssertionError(f'int{bits}: {v} was not refused')
+        print(f'conversion on the card, int{bits}: {len(rows)} values in {sorted(set(vals.tolist()))} equal to the '
+              f"host's cast word for word; NaN, inf and -inf refused with the host's error", flush=True)  # fmt: skip
+
+
+def pipeline_model():
+    """``bench.py``'s pipeline model (``_run_inference_micro(limited=False)``)
+    from the port's tracer: 16 inputs (1, 3, 2), dense 64, relu (6, 2), dense
+    8, weights from ``default_rng(11)``, then its 262144 samples from the same
+    generator; cut by ``to_pipeline(comb, 3.0)``. Returns the pipeline and
+    the samples."""
+    from da4ml_tpu_torch.trace import FixedVariableArrayInput, HWConfig, comb_trace, to_pipeline
+
+    rng = np.random.default_rng(11)
+    n_in, hidden = 16, 64
+    inp = FixedVariableArrayInput(n_in, hwconf=HWConfig(1, -1, -1), solver_options={'backend': 'cpp'})
+    x = inp.quantize(np.ones(n_in), np.full(n_in, 3), np.full(n_in, 2))
+    w1 = rng.integers(-8, 8, (n_in, hidden)).astype(np.float64)
+    x = (x @ w1).relu(i=np.full(hidden, 6), f=np.full(hidden, 2))
+    w2 = rng.integers(-8, 8, (hidden, 8)).astype(np.float64)
+    comb = comb_trace(inp, x @ w2)
+    data = rng.uniform(-8, 8, (PIPELINE_SAMPLES, n_in))
+    return to_pipeline(comb, 3.0), data
+
+
+def pipeline_modes(torch, pipe, data, label: str, card: str) -> dict[str, int]:
+    """A pipeline through ``Pipeline.predict(backend='torch')`` with
+    ``fused=True``, ``False`` and ``'ir'`` and through the per-stage host
+    loop (``run_binary`` a stage, the float boundary between stages), each
+    after a warm call, K1's count reset just before and read just after the
+    timed call: each equal to ``predict(backend='numpy')``. Prints the
+    samples/s (host clock) and K1 launches of each; returns the launches."""
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import run_binary
+
+    golden = pipe.predict(data, backend='numpy')
+    binaries = [s.to_binary() for s in pipe.stages]
+
+    def hostloop(d):
+        for b in binaries:
+            d = run_binary(b, d)
+        return d
+
+    modes = {'fused': lambda: pipe.predict(data, backend='torch', fused=True),
+             'chained': lambda: pipe.predict(data, backend='torch', fused=False),
+             'ir': lambda: pipe.predict(data, backend='torch', fused='ir'),
+             'hostloop': lambda: hostloop(data)}  # fmt: skip
+    launches, lines = {}, []
+    for mode, run in modes.items():
+        run()
+        torch.cuda.synchronize()
+        cuda_backend.reset_counts()
+        t0 = time.perf_counter()
+        y = run()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        launches[mode] = cuda_backend.launches
+        assert launches[mode] > 0, f'{label} {mode}: K1 was not launched'
+        assert np.array_equal(y, golden), f"{label} {mode}: differs from predict(backend='numpy')"
+        lines.append(f'{mode} {len(data) / dt:.6g} samples/s ({launches[mode]} K1 launches)')
+    print(f"[{card}] {label}, {len(pipe.stages)} stages, {len(data)} samples, each equal to predict(backend='numpy'): "
+          f"{'; '.join(lines)}", flush=True)  # fmt: skip
+    return launches
+
+
+def stages_equal_plain(torch, pipe, data, label: str) -> None:
+    """Each stage's K1 against its plain version on the card, on the stage's
+    inputs from the staged reference."""
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime.reference import run_program
+    from da4ml_tpu_torch.runtime.torch_backend import executor_for_binary
+
+    want = data
+    for k, stage in enumerate(pipe.stages):
+        binary = stage.to_binary()
+        ex = executor_for_binary(binary)
+        k1_equal_plain(torch, ex, ex.int_inputs(want), 1 << 16)
+        want = run_program(decode(binary), want)
+    print(f"{label}: each of the {len(pipe.stages)} stages' K1 equal to its plain version on the card", flush=True)
+
+
+def run_pipeline_model(torch, card: str) -> dict[str, int]:
+    """``bench.py``'s pipeline model through the four modes, each stage's K1
+    and the fused program's held to their plain versions on the card."""
+    from da4ml_tpu_torch.runtime.torch_backend import fused_executor_for_binaries
+
+    pipe, data = pipeline_model()
+    launches = pipeline_modes(torch, pipe, data, 'pipeline model', card)
+    stages_equal_plain(torch, pipe, data, 'pipeline model')
+    ex = fused_executor_for_binaries([s.to_binary() for s in pipe.stages])
+    k1_equal_plain(torch, ex, ex.int_inputs(data), 1 << 16)
+    return launches
+
+
+def fusion_fused(torch, name: str, pipe, data, card: str, ptxas) -> None:
+    """A fusion workload's fused program: ``fuse_binaries`` equal to the JAX
+    package's (``FUSED_DIGESTS``), its ``FusionReport``, its launch shape, K1
+    against its plain version, and ``FUSED_REPEATS`` launches on the same
+    inputs, none differing."""
+    from da4ml_tpu_torch.ir.fuse import fuse_binaries
+    from da4ml_tpu_torch.runtime.torch_backend import fused_executor_for_binaries
+
+    binaries = [s.to_binary() for s in pipe.stages]
+    digest = hashlib.sha256(fuse_binaries(binaries).astype('<i4').tobytes()).hexdigest()
+    assert digest == FUSED_DIGESTS[name], f"fusion {name}: the fused program differs from the reference's ({digest})"
+    _, rep = pipe.fuse(report=True)
+    ex = fused_executor_for_binaries(binaries)
+    x = ex.int_inputs(data)
+    k1_equal_plain(torch, ex, x, len(data))
+    first = ex.kernel.launch(x)
+    differ = 0
+    for _ in range(FUSED_REPEATS):
+        differ += not torch.equal(ex.kernel.launch(x), first)
+    torch.cuda.synchronize()
+    assert differ == 0, f'fusion {name}: {differ} of {FUSED_REPEATS} launches of the fused program differ'
+    line, _ = k1_shape(torch, ex, ptxas)
+    ms = cuda_ms(lambda: ex.fn_int(x), reps=10)
+    print(f"fusion {name} fused: {rep}; byte-identical to the JAX package's fused program", flush=True)
+    print(f'[{card}] fusion {name} fused dais_exec: {line}; K1 {ms:.4f} ms for {len(data)} samples, equal to the '
+          f'plain version; {FUSED_REPEATS} launches on the same inputs, none differing', flush=True)  # fmt: skip
+
+
 def main() -> int:
     import torch
 
@@ -1192,6 +1522,7 @@ def main() -> int:
     from da4ml_tpu_torch.cmvm import torch_search as ts
     from da4ml_tpu_torch.entry import flagship_comb
     from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.ir.synth import random_program
     from da4ml_tpu_torch.native import build as native_build
     from da4ml_tpu_torch.runtime import cuda_backend
     from da4ml_tpu_torch.runtime.reference import run_program
@@ -1396,14 +1727,23 @@ def main() -> int:
     # phases 9-11: the traced workloads through the port's tracer, K2 and K1:
     # the config-5 model, the fusion workloads, the 256x256 conv front end
     model = run_config5(torch, ts, fused_cse, native, card, k1_regs)
-    fusion = run_fusion(torch, ts, fused_cse, card)
+    fusion = run_fusion(torch, ts, fused_cse, card, k1_regs)
     wide_conv = run_wide_conv(torch, card, k1_regs)
 
-    # phase 12: the port imported nothing of JAX
+    # phases 12-13: the conversion on the card at the integer types' edges;
+    # bench.py's pipeline model through the four pipeline modes
+    wide = DaisExecutor(random_program(np.random.default_rng(5), n_ops=400, n_in=8, n_out=6, wide=True))
+    assert wide.dtype == torch.int64
+    conversion_edges(torch, DaisExecutor(prog), wide)
+    pipeline_launches = run_pipeline_model(torch, card)
+
+    # phase 14: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
     k1_paths = {'flagship': dais['launches'], 'config5': model['k1_launches'], 'fusion': fusion['k1_launches'],
-                'wide_conv': wide_conv['k1_launches']}  # fmt: skip
+                'wide_conv': wide_conv['k1_launches'],
+                **{f'fusion_{mode}': n for mode, n in fusion['k1_modes'].items()},
+                **{f'pipeline_model_{mode}': n for mode, n in pipeline_launches.items()}}  # fmt: skip
     k2_paths = {'flagship': k2_launches, 'config5': model['k2_launches'], 'fusion': fusion['k2_launches']}
     kernels_line = [
         {**dais, 'launches': sum(k1_paths.values()), 'launches_by_path': k1_paths},

@@ -3,8 +3,9 @@
 ``CombLogic`` is one block of fully-combinational SSA ops. ``Pipeline`` chains
 CombLogic stages at II=1. Both replay symbolically (over tracer variables) or
 numerically (over floats) via ``__call__``; batch bit-exact execution goes
-through the port's runtime (the torch executor, or the host reference
-interpreter) by ``predict``.
+through the port's runtime (the torch executor, or the host interpreters) by
+``predict``. ``Pipeline.fuse`` merges the stages into one program
+(``ir/fuse.py``).
 
 Counterpart of ``da4ml_tpu/ir/comb.py``.
 """
@@ -114,6 +115,14 @@ class CombLogic(NamedTuple):
         return out
 
     @property
+    def out_kifs(self) -> NDArray:
+        return np.array([minimal_kif(qi) for qi in self.out_qint]).T
+
+    @property
+    def inp_latency(self) -> list[float]:
+        return [op.latency for op in self.ops if op.opcode == -1]
+
+    @property
     def inp_qint(self) -> list[QInterval]:
         qints = [QInterval(0.0, 0.0, 1.0) for _ in range(self.shape[0])]
         for op in self.ops:
@@ -124,6 +133,24 @@ class CombLogic(NamedTuple):
     @property
     def inp_kifs(self) -> NDArray:
         return np.array([minimal_kif(qi) for qi in self.inp_qint]).T
+
+    @property
+    def ref_count(self) -> NDArray:
+        """Number of downstream references to each buffer slot."""
+        rc = np.zeros(len(self.ops), dtype=np.uint64)
+        for op in self.ops:
+            if op.opcode == -1:
+                continue
+            if op.id0 != -1:
+                rc[op.id0] += 1
+            if op.id1 != -1:
+                rc[op.id1] += 1
+            if op.opcode in (6, -6):
+                rc[op.data & 0xFFFFFFFF] += 1
+        for i in self.out_idxs:
+            if i >= 0:
+                rc[i] += 1
+        return rc
 
     def __repr__(self) -> str:
         n_in, n_out = self.shape
@@ -212,6 +239,9 @@ class CombLogic(NamedTuple):
         sizes = [len(t) for t in tables]
         return np.concatenate([data, np.concatenate([sizes] + tables, axis=0, dtype=np.int32)])
 
+    def save_binary(self, path: str | Path, version: int = 0):
+        self.to_binary(version=version).tofile(str(path))
+
     # -------------------------------------------------------------- predict
 
     def predict(
@@ -244,6 +274,11 @@ class Pipeline(NamedTuple):
         return out
 
     @property
+    def solutions(self) -> tuple[CombLogic, ...]:
+        """Alias kept for API familiarity with the reference."""
+        return self.stages
+
+    @property
     def kernel(self):
         return reduce(lambda x, y: x @ y, [s.kernel for s in self.stages])
 
@@ -264,19 +299,88 @@ class Pipeline(NamedTuple):
         return self.stages[0].inp_qint
 
     @property
+    def inp_latency(self):
+        return self.stages[0].inp_latency
+
+    @property
+    def inp_shifts(self):
+        return self.stages[0].inp_shifts
+
+    @property
+    def out_qint(self):
+        return self.stages[-1].out_qint
+
+    @property
     def out_latencies(self):
         return self.stages[-1].out_latency
+
+    @property
+    def out_shift(self):
+        return self.stages[-1].out_shifts
+
+    @property
+    def out_neg(self):
+        return self.stages[-1].out_negs
+
+    @property
+    def reg_bits(self) -> int:
+        """Total pipeline-register bits (input regs + each stage's outputs)."""
+        bits = sum(sum(minimal_kif(q)) for q in self.inp_qint)
+        for stage in self.stages:
+            bits += sum(sum(minimal_kif(q)) for q in stage.out_qint)
+        return int(bits)
 
     def __repr__(self) -> str:
         dims = [s.shape[0] for s in self.stages] + [self.shape[1]]
         lo, hi = self.latency
         return f'Pipeline([{" -> ".join(map(str, dims))}], cost={self.cost}, latency={lo}-{hi})'
 
-    def predict(self, data, backend: str = 'torch', device=None, n_threads: int = 0):
-        """Stage-by-stage execution with a float boundary between stages,
-        each through :meth:`CombLogic.predict` with these arguments
-        (``'torch'``, ``'numpy'`` or ``'cpp'``)."""
-        out = np.asarray(data, dtype=np.float64)
+    def to_dict(self) -> dict:
+        return {'stages': [s.to_dict() for s in self.stages]}
+
+    @classmethod
+    def from_dict(cls, data: dict) -> 'Pipeline':
+        return cls(stages=tuple(CombLogic.from_dict(s) for s in data['stages']))
+
+    def save(self, path: str | Path):
+        with open(path, 'w') as f:
+            json.dump(self.to_dict(), f, separators=(',', ':'))
+
+    @classmethod
+    def load(cls, path: str | Path) -> 'Pipeline':
+        with open(path) as f:
+            return cls.from_dict(json.load(f))
+
+    def fuse(self, report: bool = False):
+        """Merge every stage into ONE well-formed :class:`CombLogic`.
+
+        Inter-stage rescaling becomes explicit seam ops, so the level
+        scheduler packs formerly-separate stages' ops into shared
+        (level, family) groups. Bit-exact with the staged execution; with
+        ``report=True`` also returns the :class:`~.fuse.FusionReport`.
+        """
+        from .fuse import fuse_pipeline
+
+        return fuse_pipeline(self, report=report)
+
+    def predict(self, data, backend: str = 'torch', device=None, n_threads: int = 0, fused: bool | str = True):
+        """Bit-exact batch inference of the whole pipeline.
+
+        ``backend='torch'`` runs the stages through ``run_pipeline`` on
+        ``device`` (the card when None): ``fused=True`` chains every stage's
+        kernel launch and the exact inter-stage shift on the device behind
+        one call boundary (``fused=False``, ``PipelineExecutor.chained``, is
+        the same sequence of launches); ``fused='ir'`` merges the stages into
+        one DAIS program first (one kernel launch a chunk). ``'numpy'`` and
+        ``'cpp'`` run stage by stage on the host with a float boundary between
+        stages.
+        """
+        data = np.asarray(data, dtype=np.float64)
+        if backend == 'torch':
+            from ..runtime import run_pipeline
+
+            return run_pipeline([s.to_binary() for s in self.stages], data, device=device, fused=fused)
+        out = data
         for stage in self.stages:
-            out = stage.predict(out, backend=backend, device=device, n_threads=n_threads)
+            out = stage.predict(out, backend=backend, n_threads=n_threads)
         return out

@@ -150,3 +150,16 @@ def levelize(opcode: NDArray, id0: NDArray, id1: NDArray, cond: NDArray, sort_ke
 def levelize_program(prog, sort_key: NDArray | None = None) -> LevelSchedule:
     """Level schedule of a decoded :class:`~.dais_binary.DaisProgram`."""
     return levelize(prog.opcode, prog.id0, prog.id1, cond=prog.data_lo, sort_key=sort_key)
+
+
+def levelize_comb(comb) -> LevelSchedule:
+    """Level schedule of a :class:`~.comb.CombLogic` op list (the mux
+    condition slot lives in the low half of ``op.data``)."""
+    ops = comb.ops
+    opcode = np.fromiter((op.opcode for op in ops), dtype=np.int64, count=len(ops))
+    id0 = np.fromiter((op.id0 for op in ops), dtype=np.int64, count=len(ops))
+    id1 = np.fromiter((op.id1 for op in ops), dtype=np.int64, count=len(ops))
+    cond = np.fromiter(
+        ((op.data & 0xFFFFFFFF) if abs(op.opcode) == 6 else 0 for op in ops), dtype=np.int64, count=len(ops)
+    )
+    return levelize(opcode, id0, id1, cond=cond)

@@ -10,6 +10,13 @@
 The table-driven interpreter ``reference`` is the oracle all three are held
 to. No backend is picked on the caller's behalf: the host runtimes run only
 when named.
+
+Pipelines: ``run_pipeline`` (``fused=True``, and ``False``, the same path
+here: the stages chained on the device behind one call boundary; ``'ir'``:
+the stages fused into one DAIS program first),
+``PipelineExecutor`` and ``fused_executor_for_binaries``, from
+``torch_backend`` (imported on first use: this package imports no torch
+until an executor is asked for).
 """
 
 from __future__ import annotations
@@ -50,4 +57,16 @@ def program_from_binary(binary: NDArray[np.int32], device=None):
     return DaisExecutor(decode(binary), device=device)
 
 
-__all__ = ['run_comb', 'program_from_binary', 'BACKENDS']
+#: names served from ``torch_backend`` on first use
+_TORCH_BACKEND = ('PipelineExecutor', 'fused_executor_for_binaries', 'run_pipeline')
+
+
+def __getattr__(name: str):
+    if name in _TORCH_BACKEND:
+        from . import torch_backend
+
+        return getattr(torch_backend, name)
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
+
+
+__all__ = ['run_comb', 'program_from_binary', 'BACKENDS', *_TORCH_BACKEND]

@@ -1,9 +1,9 @@
 """DAIS program executor on torch tensors.
 
 ``DaisExecutor`` turns a decoded DAIS program into a batched integer kernel
-and wraps it with the host float boundary (input scaling/floor, output
-rescale), so the device only ever sees fixed-point integer arithmetic: int32,
-or int64 when the program's widths demand it (the rule of
+and wraps it with the float boundary (input scaling/floor, output rescale),
+so the kernel only ever sees fixed-point integer arithmetic: int32, or int64
+when the program's widths demand it (the rule of
 ``da4ml_tpu/runtime/jax_backend.py:493``, copied exactly).
 
 Execution goes through the hand-written CUDA kernel (``cuda_backend``) on a
@@ -17,17 +17,34 @@ writes its contiguous rows of the execution buffer in place. The CUDA
 kernel's wrapper runs that plain version when, and only when, it is handed a
 CPU tensor.
 
+The call boundary (``__call__``) is the reference's ``_run_batch`` with the
+conversion on the device: the float64 batch goes to the device, is checked
+for NaN and inf, scaled, floored and cast there (``_int_inputs`` as torch
+ops, bit for bit), runs through the kernel and is rescaled to float64 there.
+A batch of at least two chunk budgets (``_infer_chunks``) is cut into
+equal-shape chunks, the last padded and trimmed; on a CUDA device those go up
+through pinned staging buffers on an upload stream and come back on a
+download stream, chunk k+1's upload overlapping chunk k's kernel, events
+ordering every use. A smaller batch is one ``.to(device)`` and one
+``.cpu()``.
+
+:class:`PipelineExecutor` chains the stages of a pipeline behind one such
+boundary, each stage's kernel launch and the exact inter-stage shift on the
+device; ``run_pipeline`` and ``fused_executor_for_binaries`` are its cached
+entry points, the latter over the IR-fused program (``ir/fuse.py``).
+
 Entry points run on the card unless the caller passes ``device='cpu'``;
 ``device=None`` with no CUDA device raises instead of dropping to the CPU.
 
-Counterpart of ``DaisExecutor`` in ``da4ml_tpu/runtime/jax_backend.py``
-without its ``unroll``/``scan`` modes, autotune, packed I/O, donation,
-sharding and model-shard paths.
+Counterpart of ``DaisExecutor``, ``PipelineExecutor`` and ``run_pipeline`` in
+``da4ml_tpu/runtime/jax_backend.py``, without the ``unroll``/``scan`` modes,
+autotune, sharding and model-shard paths.
 """
 
 from __future__ import annotations
 
 from collections import OrderedDict
+from functools import lru_cache
 
 import numpy as np
 import torch
@@ -55,12 +72,17 @@ def resolve_device(device) -> torch.device:
     return torch.device(device)
 
 
-def validate_batch(data, n_in: int, what: str = 'DaisExecutor') -> NDArray[np.float64]:
+def non_finite_error(what: str, bad: int) -> InvalidInputError:
+    return InvalidInputError(f'{what}: input contains {bad} non-finite (NaN/inf) value(s)')
+
+
+def validate_batch(data, n_in: int, what: str = 'DaisExecutor', finite: bool = True) -> NDArray[np.float64]:
     """Validate an inference batch before dispatch:
 
     - the batch must be 2-D ``(n_samples, n_features)``;
     - the feature width must match the program's ``n_in``;
-    - every value must be finite (NaN/inf floor to undefined integers).
+    - with ``finite``, every value must be finite (NaN/inf floor to
+      undefined integers); the card's boundary checks that on the card.
 
     Returns the batch as a float64 array.
     """
@@ -75,9 +97,8 @@ def validate_batch(data, n_in: int, what: str = 'DaisExecutor') -> NDArray[np.fl
         )
     if arr.shape[1] != n_in:
         raise InvalidInputError(f'{what}: feature width mismatch: program expects {n_in} inputs, got {arr.shape[1]}')
-    if arr.size and not np.isfinite(arr).all():
-        bad = int(np.count_nonzero(~np.isfinite(arr)))
-        raise InvalidInputError(f'{what}: input contains {bad} non-finite (NaN/inf) value(s)')
+    if finite and arr.size and not np.isfinite(arr).all():
+        raise non_finite_error(what, int(np.count_nonzero(~np.isfinite(arr))))
     return arr
 
 
@@ -427,12 +448,143 @@ class LevelPlan:
         return (buf.index_select(0, pos_out) * osign).t().contiguous()
 
 
+# ---------------------------------------------------------------------------
+# the call boundary: chunked, overlapped transfers
+# ---------------------------------------------------------------------------
+
+#: per-chunk budget of the float64 batch, and chunks of one call at most:
+#: the reference's rule, its 1 MiB and 16 chunks replaced after a measurement
+#: (``tools/boundary_ab.py``, NVIDIA H100 80GB HBM3, 700 W), where they lost
+#: to one chunk on the batches of 25 to 128 MiB measured and to 4 chunks on
+#: those of 1 and 1.5 GiB
+CHUNK_BYTES = 256 << 20
+CHUNK_MAX = 4
+
+
+def _infer_chunks(n: int, row_bytes: int = 0) -> int:
+    """Chunk count for a batch: batch bytes over the per-chunk budget
+    (``CHUNK_BYTES``), at most ``CHUNK_MAX`` chunks; a batch under two budgets
+    is one chunk. The reference's rule (which also reads two environment
+    variables; the port reads none)."""
+    total = n * max(row_bytes, 1)
+    if total < 2 * CHUNK_BYTES:
+        return 1
+    return int(max(1, min(-(-total // CHUNK_BYTES), CHUNK_MAX, n)))
+
+
+@lru_cache(maxsize=None)
+def _copy_streams(index: int) -> tuple:
+    """The upload and download streams of CUDA device ``index``: two copy
+    engines, so chunk k's download never queues before chunk k+1's upload."""
+    return torch.cuda.Stream(index), torch.cuda.Stream(index)
+
+
+def run_chunks(host: NDArray, fn, out_cols: int, out_dtype: torch.dtype, device: torch.device) -> NDArray:
+    """``fn`` over a host batch, chunk by chunk: ``host`` (n, cols) goes to
+    ``device`` in ``_infer_chunks`` equal-shape chunks (the last one padded
+    with zeros), ``fn`` maps each device chunk to an (rows, ``out_cols``)
+    ``out_dtype`` tensor, and the chunks' results come back trimmed to n rows,
+    as numpy.
+
+    One chunk is one ``.to(device)`` and one ``.cpu()``. Several chunks on
+    a CUDA device are each copied into one of two pinned staging buffers on
+    the host, uploaded on the upload stream, run by ``fn`` on the current
+    stream once the upload's event has passed, and downloaded on the download
+    stream into a pinned buffer once ``fn``'s event has passed: chunk k+1's
+    upload overlaps chunk k's ``fn``. The host refills a staging buffer only
+    after the upload that read it has ended, and copies a chunk's result out
+    only after its download has ended; ``record_stream`` keeps the caching
+    allocator from handing a chunk's device buffers to another stream before
+    the stream that reads them is done. On the CPU the chunks run in turn."""
+    n, cols = host.shape
+    if n == 0:
+        return torch.empty((n, out_cols), dtype=out_dtype).numpy()
+    nc = _infer_chunks(n, host.itemsize * cols)
+    if nc == 1:
+        return fn(torch.from_numpy(np.ascontiguousarray(host)).to(device)).cpu().numpy()
+    chunk = -(-n // nc)
+    nc = -(-n // chunk)
+    res = torch.empty((n, out_cols), dtype=out_dtype).numpy()
+    if device.type != 'cuda':
+        for k in range(nc):
+            r0, m = k * chunk, min(chunk, n - k * chunk)
+            part = host[r0 : r0 + m]
+            if m < chunk:  # equal-shape chunks: pad the last one, trim its result
+                part = np.concatenate([part, np.zeros((chunk - m, cols), host.dtype)])
+            y = fn(torch.from_numpy(np.ascontiguousarray(part)).to(device))
+            res[r0 : r0 + m] = y[:m].cpu().numpy()
+        return res
+
+    device = torch.device('cuda', device.index if device.index is not None else torch.cuda.current_device())
+    up, down = _copy_streams(device.index)
+    compute = torch.cuda.current_stream(device)
+    in_dtype = torch.from_numpy(host[:0]).dtype
+    staging = [torch.empty((chunk, cols), dtype=in_dtype, pin_memory=True) for _ in range(min(nc, 2))]
+    uploaded: list = [None] * len(staging)  # per staging buffer, the event of the upload that last read it
+    fetched = []  # per chunk, the event of its download
+    out = torch.empty((nc * chunk, out_cols), dtype=out_dtype, pin_memory=True)
+    out_np = out.numpy()
+
+    def copy_out(k: int) -> None:
+        fetched[k].synchronize()
+        r0 = k * chunk
+        res[r0 : r0 + chunk] = out_np[r0 : min(r0 + chunk, n)]
+
+    for k in range(nc):
+        r0, m = k * chunk, min(chunk, n - k * chunk)
+        b = k % len(staging)
+        if uploaded[b] is not None:
+            uploaded[b].synchronize()
+        stage_np = staging[b].numpy()
+        stage_np[:m] = host[r0 : r0 + m]
+        stage_np[m:] = 0
+        with torch.cuda.stream(up):
+            xd = torch.empty((chunk, cols), dtype=in_dtype, device=device)
+            xd.copy_(staging[b], non_blocking=True)
+            uploaded[b] = up.record_event()
+        compute.wait_event(uploaded[b])
+        xd.record_stream(compute)
+        yd = fn(xd)
+        ready = compute.record_event()
+        with torch.cuda.stream(down):
+            down.wait_event(ready)
+            out[r0 : r0 + chunk].copy_(yd, non_blocking=True)
+            fetched.append(down.record_event())
+        yd.record_stream(down)
+        del xd, yd
+        if k:
+            copy_out(k - 1)
+    copy_out(nc - 1)
+    return res
+
+
+def boundary_call(first: 'DaisExecutor', last: 'DaisExecutor', fn, data, device: torch.device) -> NDArray[np.float64]:
+    """A float batch through an integer function ``fn`` (``first``'s inputs to
+    ``last``'s outputs) behind the call boundary, chunked by ``run_chunks``:
+    each float64 chunk is converted on ``device`` (``first.int_inputs_on``),
+    ``fn`` runs, and its output is rescaled there (``last.float_outputs_on``);
+    a NaN or inf anywhere refuses the batch with ``validate_batch``'s error
+    before any output is returned."""
+    what = type(first).__name__
+    arr = validate_batch(data, first.prog.n_in, what=what, finite=False)
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+
+    def on_device(xf):
+        return last.float_outputs_on(fn(first.int_inputs_on(xf, bad)))
+
+    out = run_chunks(arr, on_device, last.prog.n_out, torch.float64, device)
+    n_bad = int(bad)
+    if n_bad:
+        raise non_finite_error(what, n_bad)
+    return out
+
+
 class DaisExecutor:
     """A DAIS program as a batched integer kernel on one device.
 
     ``fn_int`` maps a (batch, n_in) integer tensor to (batch, n_out) through
     the CUDA kernel's wrapper (the plain ``level`` version for a CPU tensor);
-    ``__call__`` wraps it with the host float boundary.
+    ``__call__`` wraps it with the call boundary (``boundary_call``).
     """
 
     def __init__(self, prog: DaisProgram, device=None):
@@ -446,6 +598,9 @@ class DaisExecutor:
         self.meta = op_meta(prog, self.use_i64)
         self.schedule = levelize_program(prog, sort_key=self.meta['branch'].astype(np.int64))
         self.plain = LevelPlan(self)
+        self._in_scale = self._inp_scale()
+        self._out_sf = self._out_scale()
+        self._scales: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
 
         from .cuda_backend import DaisKernel
 
@@ -459,15 +614,20 @@ class DaisExecutor:
 
     # -- host boundary -----------------------------------------------------
 
-    def _int_inputs(self, data: NDArray[np.float64]) -> NDArray:
+    def _inp_scale(self) -> NDArray[np.float64]:
+        """Each input column's scale, 2**(inp_shift + the copy op's fractionals)
+        (0 for a column no copy op reads)."""
         prog = self.prog
-        arr = validate_batch(data, prog.n_in, what=type(self).__name__)
         scale = np.zeros(prog.n_in, dtype=np.float64)
         for i in range(prog.n_ops):
             if prog.opcode[i] == -1:
                 i0 = int(prog.id0[i])
                 scale[i0] = 2.0 ** (int(prog.inp_shifts[i0]) + int(prog.fractionals[i]))
-        x = np.floor(arr * scale)
+        return scale
+
+    def _int_inputs(self, data: NDArray[np.float64]) -> NDArray:
+        arr = validate_batch(data, self.prog.n_in, what=type(self).__name__)
+        x = np.floor(arr * self._in_scale)
         return x.astype(self.np_dtype)
 
     def _out_scale(self) -> NDArray[np.float64]:
@@ -480,32 +640,194 @@ class DaisExecutor:
             sf[j] = 2.0 ** (int(prog.out_shifts[j]) - int(prog.fractionals[idx]))
         return sf
 
+    def _scales_on(self, device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+        hit = self._scales.get(device)
+        if hit is None:
+            hit = self._scales[device] = (torch.from_numpy(self._in_scale).to(device),
+                                          torch.from_numpy(self._out_sf).to(device))  # fmt: skip
+        return hit
+
+    def int_inputs_on(self, xf: torch.Tensor, bad: torch.Tensor) -> torch.Tensor:
+        """``_int_inputs`` as torch ops on xf's device, bit for bit: adds the
+        count of xf's non-finite values to ``bad``, then scales, floors and
+        casts. A value outside the integer type's range becomes its minimum,
+        as numpy's cast on an x86 host gives it (a CUDA cast would saturate)."""
+        bad += (~torch.isfinite(xf)).sum()
+        x = torch.floor(xf * self._scales_on(xf.device)[0])
+        lo = -(2.0 ** (8 * np.dtype(self.np_dtype).itemsize - 1))
+        return torch.where((x >= lo) & (x < -lo), x, lo).to(self.dtype)
+
+    def float_outputs_on(self, y: torch.Tensor) -> torch.Tensor:
+        """The host's ``out.astype(float64) * _out_scale()`` as torch ops on
+        y's device, bit for bit."""
+        return y.to(torch.float64) * self._scales_on(y.device)[1]
+
     def int_inputs(self, data) -> torch.Tensor:
-        """The integer input tensor of a float batch, on the executor's device."""
+        """The integer input tensor of a float batch, converted on the host,
+        on the executor's device."""
         return torch.from_numpy(self._int_inputs(data)).to(self.device)
 
     def __call__(self, data: NDArray[np.float64]) -> NDArray[np.float64]:
-        out = self.fn_int(self.int_inputs(data)).cpu().numpy()
-        return out.astype(np.float64) * self._out_scale()
+        return boundary_call(self, self, self.fn_int, data, self.device)
 
 
-_executor_cache: OrderedDict[tuple, DaisExecutor] = OrderedDict()
+class PipelineExecutor:
+    """On-device execution of a hardware pipeline's stages.
+
+    Every stage's kernel launch and the *exact* inter-stage re-scaling run on
+    the device, behind one call boundary at the two ends; the integer
+    activations never leave the device. Boundary j carries ``s[j] =
+    out_shift_prev[j] - f_prev[out_idx_j] + inp_shift_next[j] + f_next[j]``:
+    the next stage's ``floor(out_float * 2**(inp_shift + f))`` on the
+    grid-aligned boundary value is exactly an arithmetic shift of the previous
+    stage's output code (floor division for negative ``s``), so the chained
+    execution is bit-exact with the stage-by-stage float one.
+
+    Counterpart of ``PipelineExecutor`` in ``da4ml_tpu/runtime/jax_backend.py``.
+    """
+
+    def __init__(self, progs: list[DaisProgram], device=None):
+        if not progs:
+            raise ValueError('PipelineExecutor needs at least one stage')
+        self.device = resolve_device(device)
+        self.stages = [DaisExecutor(p, device=self.device) for p in progs]
+        shifts: list[NDArray[np.int64]] = []
+        for pa, pb in zip(progs[:-1], progs[1:]):
+            if pa.n_out != pb.n_in:
+                raise ValueError(f'stage boundary mismatch: {pa.n_out} outputs feed {pb.n_in} inputs')
+            f_out = np.where(pa.out_idxs >= 0, pa.fractionals[np.maximum(pa.out_idxs, 0)], 0)
+            f_in = np.zeros(pb.n_in, dtype=np.int64)
+            for i in range(pb.n_ops):
+                if pb.opcode[i] == -1:
+                    f_in[int(pb.id0[i])] = int(pb.fractionals[i])
+            shifts.append(pa.out_shifts.astype(np.int64) - f_out + pb.inp_shifts.astype(np.int64) + f_in)
+        self._shifts = shifts
+        exs = self.stages
+        # boundary k shifts in the WIDER of the two boundary dtypes: widening
+        # first keeps a 32->64-bit up-shift from overflowing, and a 64->32-bit
+        # boundary must right-shift the full value BEFORE the next stage's
+        # input cast wraps it. An up-shift between two int32 stages must
+        # itself widen so it cannot wrap before the next stage's input cast
+        # does the wrapping.
+        self._bound64 = [
+            exs[k].use_i64 or exs[k + 1].use_i64 or bool(np.any(shifts[k] > 0)) for k in range(len(shifts))
+        ]
+        # shift by s as (x * 2**max(s, 0)) >> min(max(-s, 0), width - 1): a
+        # multiply wraps where a left shift of a negative value would trap,
+        # a multiplier of 0 is a left shift by the width or more, and a right
+        # shift by the width or more is the sign fill
+        self._shift_consts = []
+        for s, b64 in zip(shifts, self._bound64):
+            bits = 64 if b64 else 32
+            np_dt = np.int64 if b64 else np.int32
+            left = np.where(s >= 0, s, 0)
+            mul = np.where(left < bits, np.int64(1) << np.minimum(left, 63), 0).astype(np_dt)
+            rsh = np.minimum(np.where(s < 0, -s, 0), bits - 1).astype(np_dt)
+            self._shift_consts.append((mul, rsh))
+        self._consts: dict[torch.device, list] = {}
+
+    def _boundary(self, x: torch.Tensor, k: int) -> torch.Tensor:
+        hit = self._consts.get(x.device)
+        if hit is None:
+            hit = self._consts[x.device] = [(torch.from_numpy(m).to(x.device), torch.from_numpy(r).to(x.device))
+                                            for m, r in self._shift_consts]  # fmt: skip
+        mul, rsh = hit[k]
+        return (x.to(mul.dtype) * mul) >> rsh
+
+    def fn_int(self, x: torch.Tensor) -> torch.Tensor:
+        """(batch, n_in) integer tensor -> the last stage's (batch, n_out),
+        on x's device: each stage's kernel, then the boundary shift. Each
+        intermediate is freed as soon as the next stage has read it."""
+        for k, ex in enumerate(self.stages):
+            x = ex.fn_int(x.to(ex.dtype).contiguous())
+            if k < len(self._shifts):
+                x = self._boundary(x, k)
+        return x
+
+    def __call__(self, data: NDArray[np.float64]) -> NDArray[np.float64]:
+        """All stages over each chunk of the batch behind the call boundary
+        (``boundary_call``)."""
+        return boundary_call(self.stages[0], self.stages[-1], self.fn_int, data, self.device)
+
+    def chained(self, data: NDArray[np.float64]) -> NDArray[np.float64]:
+        """The per-stage entry point, ``fused=False`` of ``run_pipeline``.
+
+        The reference runs its stages either as one XLA program or as one
+        program per stage with donated buffers. In PyTorch both are the same
+        sequence of launches on one stream, each intermediate freed as soon
+        as the next stage has read it (the counterpart of donation), so this
+        is ``__call__``.
+        """
+        return self(data)
+
+
 _EXECUTOR_CACHE_CAP = 256
+_executor_cache: OrderedDict[tuple, DaisExecutor] = OrderedDict()
+_pipeline_cache: OrderedDict[tuple, PipelineExecutor] = OrderedDict()
+_fused_ir_cache: OrderedDict[tuple, DaisExecutor] = OrderedDict()
+
+
+def _cached(cache: OrderedDict, key, build):
+    """LRU lookup: ``cache[key]``, built by ``build()`` on a miss, the least
+    recently used entry evicted past ``_EXECUTOR_CACHE_CAP`` entries."""
+    hit = cache.get(key)
+    if hit is None:
+        while len(cache) >= _EXECUTOR_CACHE_CAP:
+            cache.popitem(last=False)
+        cache[key] = hit = build()
+    else:
+        cache.move_to_end(key)
+    return hit
 
 
 def executor_for_binary(binary: NDArray[np.int32], device=None) -> DaisExecutor:
     """A cached executor for a DAIS binary on ``device`` (LRU, 256 entries)."""
     dev = resolve_device(device)
     key = (np.asarray(binary, dtype=np.int32).tobytes(), str(dev))
-    ex = _executor_cache.get(key)
-    if ex is None:
-        while len(_executor_cache) >= _EXECUTOR_CACHE_CAP:
-            _executor_cache.popitem(last=False)
-        _executor_cache[key] = ex = DaisExecutor(decode(binary), device=dev)
-    else:
-        _executor_cache.move_to_end(key)
-    return ex
+    return _cached(_executor_cache, key, lambda: DaisExecutor(decode(binary), device=dev))
 
 
 def run_binary(binary: NDArray[np.int32], data: NDArray[np.float64], device=None) -> NDArray[np.float64]:
     return executor_for_binary(binary, device=device)(data)
+
+
+def _pipeline_key(binaries: list[NDArray[np.int32]]) -> bytes:
+    # length-prefixed segments: plain concatenation would let two different
+    # stage lists with identical byte streams collide
+    return b''.join(
+        len(bs := np.asarray(b, dtype=np.int32).tobytes()).to_bytes(8, 'little') + bs for b in binaries
+    )
+
+
+def fused_executor_for_binaries(binaries: list[NDArray[np.int32]], device=None) -> DaisExecutor:
+    """A cached executor over the IR-fused pipeline on ``device``: the
+    per-stage binaries merged into ONE DAIS program (``ir.fuse.fuse_binaries``),
+    so the kernel runs the whole pipeline in one launch a chunk."""
+    dev = resolve_device(device)
+
+    def build():
+        from ..ir.fuse import fuse_binaries
+
+        return DaisExecutor(decode(fuse_binaries(binaries)), device=dev)
+
+    return _cached(_fused_ir_cache, (_pipeline_key(binaries), str(dev)), build)
+
+
+def pipeline_executor_for_binaries(binaries: list[NDArray[np.int32]], device=None) -> PipelineExecutor:
+    """A cached :class:`PipelineExecutor` over the stages' binaries on ``device``."""
+    dev = resolve_device(device)
+    key = (_pipeline_key(binaries), str(dev))
+    return _cached(_pipeline_cache, key, lambda: PipelineExecutor([decode(b) for b in binaries], device=dev))
+
+
+def run_pipeline(binaries: list[NDArray[np.int32]], data: NDArray[np.float64], device=None,
+                 fused: bool | str = True) -> NDArray[np.float64]:  # fmt: skip
+    """Multi-stage execution on ``device`` (the card when None).
+    ``fused=True`` chains the stages' kernels behind one call boundary
+    (``fused=False``, ``PipelineExecutor.chained``, is the same path here),
+    and ``fused='ir'`` first merges the stages into ONE DAIS program at the
+    IR level."""
+    if fused == 'ir':
+        return fused_executor_for_binaries(binaries, device)(data)
+    ex = pipeline_executor_for_binaries(binaries, device)
+    return ex(data) if fused else ex.chained(data)
