@@ -125,14 +125,33 @@ on them against its plain PyTorch version:
    ``PIPELINE_SAMPLES`` samples) through the same four modes, each equal to
    ``predict(backend='numpy')``, each stage's K1 and the fused program's
    equal to their plain versions on the card;
-14. checks that neither jax nor da4ml_tpu was imported.
+14. the firmware path: the flagship program written by ``VerilogModel`` and
+   ``VHDLModel`` at latency ``FIRMWARE_CUTOFF``, each project equal to the
+   JAX package's (``PROJECT_DIGESTS``), ``predict(backend='interp')`` on
+   ``FIRMWARE_SAMPLES`` samples through K1, equal to the stage-by-stage
+   reference interpreter, and ``predict(backend='netlist')`` of both
+   projects equal to K1's rows; the config-5 twin (``models.config5_twin``,
+   an ``nn.Module``) through ``trace_model`` with ``'cpp'`` and with
+   ``'torch'`` on the card (K2, every rung call equal to its plain version,
+   no host lane), each program equal to the JAX package's with the same
+   solver (``TWIN_DIGESTS``), ``predict`` on ``FIRMWARE_SAMPLES`` samples of
+   its input grid through K1, equal to its plain version and the native
+   interpreter, and on the first ``TWIN_FORWARD_SAMPLES`` to the reference
+   interpreter and the module's float64 forward,
+   its Verilog project equal to the JAX package's and its netlist equal to
+   K1's rows; a corrupted program refused by the codegen precondition and
+   written with ``DA4ML_VERIFY=0``; prints trace, write, netlist and K1
+   times, K1's and K2's bounds, and the wall time of each step;
+15. checks that neither jax nor da4ml_tpu was imported.
 
 Every count is set to 0 just before its path is driven and read just after;
 the kernel line gives each kernel's main-path launches summed over the
 paths and by path (K1's pipeline modes as ``fusion_<mode>`` and
-``pipeline_model_<mode>``).
+``pipeline_model_<mode>``, the firmware phase as ``firmware_flagship`` and
+``firmware_twin``).
 
-Prints the kernel table as one JSON line, the card line, and last
+Prints the wall time of each phase, the kernel table as one JSON line,
+the card line, and last
 ``{"ok": true, "device": {...}}``. Exits non-zero without that line when
 there is no CUDA device or any phase fails.
 
@@ -199,6 +218,11 @@ FUSION_DIGESTS = {'conv_stack': '7cf00977d1318dfafd228253c413275aa95761035eb5f85
 FUSION_SAMPLES = 1 << 16
 #: samples of the 256x256 conv front end through K1's 24-bit-field route
 WIDE_CONV_SAMPLES = 2048
+#: rows of a chunk of the reference interpreter's checks (``reference_stages``):
+#: each host thread's share of the rows, clamped to these bounds: smaller
+#: chunks run mostly in Python, under the GIL; larger ones only grow the
+#: buffer (ops x rows of int64) each thread holds
+REF_CHUNK_ROWS = (1 << 14, 1 << 15)
 #: calls of the flagship's ``DaisExecutor.__call__`` each held to the one-launch route
 BOUNDARY_REPEATS = 20
 #: values beyond each integer type's range that the card's conversion must map
@@ -213,6 +237,46 @@ FUSED_REPEATS = 200
 #: ``FUSION_DIGESTS``
 FUSED_DIGESTS = {'conv_stack': 'a9df9720200bd782ac8d50b105ac4b984229defc1fe315ac11d6260e594c579d',
                  'transformer_block': '11149b1fbeb18484235367e2788275a47c5cbc2a423ef4d69ab9d1483f52b3ed'}  # fmt: skip
+
+
+#: the latency cutoff the firmware phase cuts its programs at (the README's quick start)
+FIRMWARE_CUTOFF = 5
+#: ``project_digest`` of the HDL projects the JAX package writes (on the CPU,
+#: ``tools/firmware_digests.py``) with ``latency_cutoff=FIRMWARE_CUTOFF`` and
+#: ``register_layers`` 1: the flagship in Verilog and in VHDL, and the
+#: config-5 twin's device-search trace in Verilog
+PROJECT_DIGESTS = {'verilog': '12356cc308e1119644693c2167c42fb4832644df368348867dcfe4ebe4a5294b',
+                   'vhdl': 'd2c3ab14293501704a73701df795edc591cafd48106ee9033965deebd2c931fd',
+                   'twin_verilog': 'e91afd28b098efc5ec31d8f48ecc5b40dae14a7d41105279547c7344e5679b22'}  # fmt: skip
+#: sha256 of the config-5 twin's DAIS binary (``da4ml_tpu_torch.models.config5_twin``,
+#: little-endian int32) as the JAX package's ``trace_model`` traces it with
+#: its native solver (19422 ops) and with its device search (19436 ops): two
+#: programs of the same function (``tools/firmware_digests.py``)
+TWIN_DIGESTS = {'cpp': 'ac8580826eeada68b5f33eedc3a2c1265d62c1f84723cff7539cb498619df2bd',
+                'jax': 'd01cb09c52b2197bc4f23692ec110194485eb0d6e9d93b3e0883aa3759680d90'}  # fmt: skip
+#: samples of the flagship and the twin through K1 in the firmware phase
+FIRMWARE_SAMPLES = 1 << 20
+#: samples of the twin held to the module's own float64 forward and to the
+#: reference interpreter (all its samples are held to the native one)
+TWIN_FORWARD_SAMPLES = 4096
+#: samples through the netlist simulators: the flagship's projects, the twin's
+FLAGSHIP_NETLIST_SAMPLES = 256
+TWIN_NETLIST_SAMPLES = 16
+
+
+def project_digest(root) -> str:
+    """sha256 over an HDL project's files, sorted by their paths relative to
+    ``root``: for each file its relative path (UTF-8) and then its bytes,
+    each preceded by its length as 8 little-endian bytes."""
+    from pathlib import Path
+
+    root = Path(root)
+    h = hashlib.sha256()
+    for path in sorted(p for p in root.rglob('*') if p.is_file()):
+        for part in (path.relative_to(root).as_posix().encode(), path.read_bytes()):
+            h.update(len(part).to_bytes(8, 'little'))
+            h.update(part)
+    return h.hexdigest()
 
 
 def card_line() -> str:
@@ -559,7 +623,6 @@ def run_dais_flagship(torch, comb, card: str, ptxas) -> dict:
     from da4ml_tpu_torch.entry import entry
     from da4ml_tpu_torch.ir.dais_binary import decode
     from da4ml_tpu_torch.runtime import cuda_backend
-    from da4ml_tpu_torch.runtime.reference import run_program
     from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
 
     prog = decode(comb.to_binary())
@@ -586,9 +649,7 @@ def run_dais_flagship(torch, comb, card: str, ptxas) -> dict:
     assert torch.equal(y_kernel, y_plain), 'flagship: kernel disagrees with its plain version on the card'
     max_abs_err = float((y_kernel.double() - y_plain.double()).abs().max())
     assert np.array_equal(y, y_plain.cpu().numpy().astype(np.float64) * ex._out_scale())
-    chunk = 1 << 17
-    ref = np.concatenate([run_program(prog, data[i : i + chunk]) for i in range(0, len(data), chunk)])
-    assert np.array_equal(y, ref), 'flagship: kernel disagrees with the reference interpreter'
+    assert np.array_equal(y, reference_stages([prog], data)[0]), 'flagship: kernel disagrees with the reference interpreter'
     assert torch.equal(y_entry, ex.plain(x_entry)), 'entry(): kernel disagrees with its plain version'
     print(f'flagship: {FLAGSHIP_SAMPLES} samples bit-exact vs plain (card) and reference (host)')
 
@@ -667,6 +728,23 @@ class Patched:
     def __exit__(self, *exc):
         for (mod, name), fn in self.saved.items():
             setattr(mod, name, fn)
+
+
+class Laps:
+    """Host-clock seconds between successive ``lap`` calls, by name (a name
+    given again adds up)."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self._t = time.perf_counter()
+
+    def lap(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = self.seconds.get(name, 0.0) + now - self._t
+        self._t = now
+
+    def line(self) -> str:
+        return ', '.join(f'{k} {v:.1f} s' for k, v in self.seconds.items())
 
 
 def timed(seconds: dict, key: str, sync: bool = False):
@@ -792,25 +870,36 @@ def rung_work(ts, inputs, rec, cur, spec) -> dict[str, int]:
     TB = 2 * B
     work = {'bytes': 2 * (N * P * O * B + 16 * N * P) + 12 * N + 16 * N * spec.n_iters,
             'int_build': 0, 'fp_build': 0, 'int_loop': 0, 'fp_loop': 0}  # fmt: skip
-    lane = torch.zeros(1, dtype=torch.int64)
-    for n in range(N):
-        if cur0[n] >= P:  # a padding or frozen lane does nothing
-            continue
-        E = torch.from_numpy(E0[n : n + 1].copy())
-        live = int(E[0].ne(0).any(-1).any(-1).sum())
-        bits = torch.nonzero(E[0])[:, 2]
-        work['int_build'] += live * int((B - bits).sum())
-        work['fp_build'] += 2 * TB * live * live
-        for t in range(int(cur[n]) - int(cur0[n])):
-            id0, id1, sub, shift = (int(v) for v in rec[n, t])
-            i, j, s = (id0, id1, shift) if shift >= 0 else (id1, id0, -shift)
-            c = int(cur0[n]) + t
-            args = (torch.tensor([v]) for v in (sub, s, i, j))
-            E[0, c] = ts._dev_substitute(E, lane, *args, B)[0]  # the search's own substitution
-            live = int(E[0].ne(0).any(-1).any(-1).sum())
-            dirty = sorted({i, j, c})
-            work['int_loop'] += B * live * int((E[0, dirty] != 0).sum())
-            work['fp_loop'] += TB * live + len(dirty) * (2 * (TB - 1) * live + TB * live + TB * live)
+    run = np.flatnonzero(cur0 < P)  # a padding or frozen lane does nothing
+    if not len(run):
+        return work
+    E = torch.from_numpy(E0[run].copy())
+    lanes = torch.arange(len(run))
+    start = torch.from_numpy(cur0[run].astype(np.int64))
+    iters = torch.from_numpy((cur[run] - cur0[run]).astype(np.int64))
+    steps = torch.from_numpy(rec[run].astype(np.int64))
+    nz = E.ne(0)
+    alive = nz.any(-1).any(-1)  # [lanes, P]: rows holding a nonzero digit
+    live = alive.sum(-1)
+    weight = B - torch.arange(B)  # a nonzero digit at bit b: B - b checks
+    work['int_build'] += int((live * (nz * weight).sum((1, 2, 3))).sum())
+    work['fp_build'] += int((2 * TB * live * live).sum())
+    # every lane's t-th iteration at once: lanes are independent, and within a
+    # lane the iterations are replayed in order
+    for t in range(int(iters.max())):
+        u = lanes[iters > t]
+        id0, id1, sub, shift = steps[u, t].unbind(-1)
+        i, j, s = torch.where(shift >= 0, id0, id1), torch.where(shift >= 0, id1, id0), shift.abs()
+        c = start[u] + t
+        E[u, c] = ts._dev_substitute(E, u, sub, s, i, j, B)  # the search's own substitution
+        digits = [E[u, r].ne(0).sum((1, 2)) for r in (i, j, c)]
+        for r, n_nz in zip((i, j, c), digits):  # only these rows changed
+            alive[u, r] = n_nz > 0
+        live = alive[u].sum(-1)
+        dirty_nz = digits[0] + torch.where(i == j, 0, digits[1]) + digits[2]
+        d = torch.where(i == j, 2, 3)  # the distinct rows {i, j, c}
+        work['int_loop'] += int((B * live * dirty_nz).sum())
+        work['fp_loop'] += int((TB * live + d * (2 * (TB - 1) * live + TB * live + TB * live)).sum())
     return work
 
 
@@ -851,11 +940,11 @@ def k2_geometry(torch, fused_cse, P: int, O: int, B: int, K: int, ptxas) -> dict
 
 def check_rung(torch, ts, fused_cse, inputs, spec, name: str, phases: bool = False, timed: bool = True) -> dict:
     """One rung through K2 and through its plain version on the card, both
-    from the same cache-less inputs: all five outputs must be equal. With
-    ``timed``, also K2's and the plain version's milliseconds (CUDA events;
-    K2's launch alone, its wrapper's checks and allocations made before the
-    span) and the rung's work for its bound, and with ``phases`` the clock
-    cycles of K2's phases from its phase-timing build."""
+    from the same cache-less inputs: all five outputs must be equal; and the
+    rung's work for its bound. With ``timed``, also K2's and the plain
+    version's milliseconds (CUDA events; K2's launch alone, its wrapper's
+    checks and allocations made before the span), and with ``phases`` the
+    clock cycles of K2's phases from its phase-timing build."""
     dev_in = ts.rung_inputs(*inputs, spec, device='cuda')
 
     def fresh():  # both update the state in place
@@ -875,12 +964,11 @@ def check_rung(torch, ts, fused_cse, inputs, spec, name: str, phases: bool = Fal
         'max_iters': int(done.max()), 'chains': sum(int((rec[n, :k, 0] == rec[n, :k, 1]).sum()) for n, k in enumerate(done)),
         'max_abs_err': max(float((g.double() - w.double()).abs().max()) for g, w in zip(got, want) if g.numel()),
     }  # fmt: skip
-    if not timed:
-        return out
-    out['ms'] = cuda_ms(fused_cse.run, reps=5, fresh=lambda: [fused_cse.prepare(*fresh(), spec)])
-    out['plain_ms'] = cuda_ms(lambda *a: ts.rung_plain(*a, spec), reps=3, fresh=fresh)
-    if phases:
-        out['phases'] = fused_cse.phase_cycles(*fresh(), spec)
+    if timed:
+        out['ms'] = cuda_ms(fused_cse.run, reps=5, fresh=lambda: [fused_cse.prepare(*fresh(), spec)])
+        out['plain_ms'] = cuda_ms(lambda *a: ts.rung_plain(*a, spec), reps=3, fresh=fresh)
+        if phases:
+            out['phases'] = fused_cse.phase_cycles(*fresh(), spec)
     work = rung_work(ts, inputs, rec, cur, spec)
     out['bytes_ms'] = work['bytes'] / HBM_BYTES_PER_S * 1e3
     for part in ('build', 'loop'):
@@ -1007,28 +1095,74 @@ def wide_conv_front_end():
     return comb_trace(inp, relu(conv2d(x, w, strides=(2, 2), padding='valid')))
 
 
-def k1_equal_plain(torch, ex, x, chunk: int) -> float:
+def k1_equal_plain(torch, ex, x, chunk: int, data=None, label: str = 'K1') -> float:
     """K1 (``fn_int``) against its plain version on the card, ``chunk`` rows
     at a time (the plain version's buffer is ops x rows); raises on any
-    difference; returns the largest absolute difference (0)."""
+    difference, with ``k1_mismatch``'s report when the float batch ``data``
+    behind ``x`` is given (no retry); returns the largest absolute
+    difference (0)."""
+    from da4ml_tpu_torch.runtime.reference import run_program
+
     err = 0.0
     for r0 in range(0, x.shape[0], chunk):
         xs = x[r0 : r0 + chunk]
         got, want = ex.fn_int(xs), ex.plain(xs)
         if not torch.equal(got, want):
-            raise AssertionError(f'K1 differs from its plain version in {int((got != want).sum())} words (rows {r0}+)')
+            report = f'{int((got != want).sum())} words differ'
+            if data is not None:
+                report = k1_mismatch(torch, ex, ex.prog, data[r0 : r0 + chunk], xs, got, want, run_program)
+            raise AssertionError(f'{label} differs from its plain version (rows {r0}+): {report}')
         err = max(err, float((got.double() - want.double()).abs().max()))
     return err
 
 
-def reference_equal(prog, data, y, chunk: int = 1 << 16) -> None:
-    """The executor's output ``y`` equals the reference interpreter's on the
-    host, ``chunk`` rows at a time."""
+def k1_bound_ms(ex, batch: int) -> tuple[float, str]:
+    """K1's bound for ``batch`` samples of an executor's program: the larger
+    of its bytes over HBM and its int32 ALU operations over the card's
+    issue rate (``DaisKernel.work``)."""
+    n_bytes, int_ops = ex.kernel.work(batch)
+    bytes_ms, ops_ms = n_bytes / HBM_BYTES_PER_S * 1e3, int_ops / INT32_OPS_PER_S * 1e3
+    return (ops_ms, 'operations') if ops_ms >= bytes_ms else (bytes_ms, 'bytes')
+
+
+def rung_bound_ms(checked: list[dict]) -> float:
+    """K2's bound summed over rung calls held by ``check_rung``."""
+    return sum(max(r['bytes_ms'], r['ops_ms']) for r in checked)
+
+
+def reference_stages(progs, data) -> list[np.ndarray]:
+    """The reference interpreter's output after each of ``progs`` run in turn
+    on ``data`` (a pipeline's stages, or one program). Row chunks
+    (``REF_CHUNK_ROWS``) go through all the programs on a pool of one thread
+    per host core: numpy releases the GIL inside each op's arrays. A chunk's
+    int64 buffer is ops x rows."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from da4ml_tpu_torch.runtime.reference import run_program
 
-    for r0 in range(0, len(data), chunk):
-        if not np.array_equal(y[r0 : r0 + chunk], run_program(prog, data[r0 : r0 + chunk])):
-            raise AssertionError(f'K1 disagrees with the reference interpreter (rows {r0}+)')
+    threads = os.cpu_count() or 1
+    lo, hi = REF_CHUNK_ROWS
+    rows = max(lo, min(hi, -(-len(data) // threads)))
+
+    def chain(r0):
+        outs, d = [], data[r0 : r0 + rows]
+        for prog in progs:
+            d = run_program(prog, d)
+            outs.append(d)
+        return outs
+
+    with ThreadPoolExecutor(threads) as pool:
+        chunks = list(pool.map(chain, range(0, len(data), rows)))
+    return [np.concatenate(outs) for outs in zip(*chunks)]
+
+
+def reference_equal(prog, data, y) -> None:
+    """The executor's output ``y`` equals the reference interpreter's on the
+    host (``reference_stages``)."""
+    want = reference_stages([prog], data)[0]
+    if not np.array_equal(y, want):
+        bad = np.flatnonzero((y != want).any(1))
+        raise AssertionError(f'K1 disagrees with the reference interpreter in {len(bad)} rows (first {bad[:10].tolist()})')
 
 
 def k2_rung_ms(torch, ts, fused_cse, rungs) -> float:
@@ -1080,8 +1214,9 @@ def run_config5(torch, ts, fused_cse, native, card: str, ptxas) -> dict:
     print(f"config 5 (8x8x3 conv, max-pool, dense 32, dense 5): 'cpp' trace {cpp_s:.3f} s ({len(comb_cpp.ops)} ops, "
           f"cost {comb_cpp.cost}); 'torch' trace {dev_s:.3f} s on the card, of which solve {clock_s['solve']:.3f} s "
           f"(tracing {dev_s - clock_s['solve']:.3f} s); {len(rungs.calls)} rung calls, K2 launched {k2_launches} times, "
-          f"{k2_ms:.4f} ms on the card, each rung call ({sum(r['iters'] for r in checked)} iterations) equal to its "
-          f"plain version on the card; no init_cache call, no host lane; {len(comb_dev.ops)} ops, cost {comb_dev.cost}; "
+          f"{k2_ms:.4f} ms on the card, bound {rung_bound_ms(checked):.6f} ms, each rung call "
+          f"({sum(r['iters'] for r in checked)} iterations) equal to its plain version on the card; no init_cache "
+          f"call, no host lane; {len(comb_dev.ops)} ops, cost {comb_dev.cost}; "
           f"each program byte-identical to the JAX package's trace with the same solver ('cpp'; 'jax' for 'torch')",
           flush=True)  # fmt: skip
 
@@ -1102,8 +1237,7 @@ def run_config5(torch, ts, fused_cse, native, card: str, ptxas) -> dict:
     line, _ = k1_shape(torch, ex, ptxas)
     ms = cuda_ms(lambda: ex.fn_int(x), reps=10)
     plain_ms = cuda_ms(lambda: ex.plain(x[:MODEL_PLAIN_ROWS]), reps=3)
-    n_bytes, int_ops = ex.kernel.work(MODEL_SAMPLES)
-    bound_ms = max(n_bytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+    bound_ms, _ = k1_bound_ms(ex, MODEL_SAMPLES)
     print(f'[{card}] config 5 dais_exec: {line}')
     print(f'[{card}] config 5: K1 {ms:.4f} ms for {MODEL_SAMPLES} samples ({launches} launches on the main path), '
           f'plain version {plain_ms:.4f} ms for {MODEL_PLAIN_ROWS}; bound {bound_ms:.4f} ms; all samples equal to the '
@@ -1160,8 +1294,9 @@ def run_fusion(torch, ts, fused_cse, card: str, ptxas) -> dict:
                for k, (inp, spec) in enumerate(rungs.calls)]  # fmt: skip
     k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs)
     print(f"fusion workloads: traced and solved on the card in {dev_s:.3f} s, K2 launched {k2_launches} times, "
-          f"{k2_ms:.4f} ms on the card, each rung call ({sum(r['iters'] for r in checked)} iterations) equal to its "
-          f"plain version on the card; no init_cache call, no host lane; stages byte-identical to the 'cpp' trace's "
+          f"{k2_ms:.4f} ms on the card, bound {rung_bound_ms(checked):.6f} ms, each rung call "
+          f"({sum(r['iters'] for r in checked)} iterations) equal to its plain version on the card; no init_cache "
+          f"call, no host lane; stages byte-identical to the 'cpp' trace's "
           f"and the JAX package's", flush=True)  # fmt: skip
     k1_launches, modes = 0, {}
     rng = np.random.default_rng(20261019)
@@ -1179,10 +1314,10 @@ def run_fusion(torch, ts, fused_cse, card: str, ptxas) -> dict:
             ex = executor_for_binary(binary)
             x = ex.int_inputs(want)
             k1_equal_plain(torch, ex, x, FUSION_SAMPLES)
-            per_stage.append((len(stage.ops), cuda_ms(lambda: ex.fn_int(x), reps=10)))
+            per_stage.append((len(stage.ops), cuda_ms(lambda: ex.fn_int(x), reps=10), k1_bound_ms(ex, FUSION_SAMPLES)[0]))
             want = run_program(decode(binary), want)
         assert np.array_equal(y, want), f'{name}: the staged K1 run disagrees with the reference interpreter'
-        stages = ', '.join(f'{n} ops {ms:.4f} ms' for n, ms in per_stage)
+        stages = ', '.join(f'{n} ops {ms:.4f} ms (bound {b:.4f} ms)' for n, ms, b in per_stage)
         print(f'[{card}] fusion {name}: {len(pipe.stages)} stages, {launches} K1 launches for {FUSION_SAMPLES} '
               f'samples; per stage {stages}; equal to the plain version and the stage-by-stage reference',
               flush=True)  # fmt: skip
@@ -1215,13 +1350,12 @@ def run_wide_conv(torch, card: str, ptxas) -> dict:
     assert launches > 0 and ex.kernel.data.field_bits == 24, (launches, ex.kernel.data.field_bits)
     x = ex.int_inputs(data)
     err = k1_equal_plain(torch, ex, x, WIDE_CONV_SAMPLES)
-    reference_equal(prog, data, y, chunk=512)
+    reference_equal(prog, data, y)
     call_vs_one_launch(torch, ex, data, y, 'wide conv', card)
     line, _ = k1_shape(torch, ex, ptxas)
     ms = cuda_ms(lambda: ex.fn_int(x), reps=5)
     plain_ms = cuda_ms(lambda: ex.plain(x), reps=3)
-    n_bytes, int_ops = ex.kernel.work(WIDE_CONV_SAMPLES)
-    bound_ms = max(n_bytes / HBM_BYTES_PER_S, int_ops / INT32_OPS_PER_S) * 1e3
+    bound_ms, _ = k1_bound_ms(ex, WIDE_CONV_SAMPLES)
     print(f"wide conv front end (256x256x1, 3x3 stride 2 'valid', relu; 'cpp'): traced in {trace_s:.3f} s (host "
           f"clock), {prog.n_ops} ops, {prog.n_in} inputs, {prog.n_out} outputs", flush=True)  # fmt: skip
     print(f'[{card}] wide conv dais_exec: {line}')
@@ -1506,9 +1640,287 @@ def fusion_fused(torch, name: str, pipe, data, card: str, ptxas) -> None:
     assert differ == 0, f'fusion {name}: {differ} of {FUSED_REPEATS} launches of the fused program differ'
     line, _ = k1_shape(torch, ex, ptxas)
     ms = cuda_ms(lambda: ex.fn_int(x), reps=10)
+    bound_ms, bound_by = k1_bound_ms(ex, len(data))
     print(f"fusion {name} fused: {rep}; byte-identical to the JAX package's fused program", flush=True)
-    print(f'[{card}] fusion {name} fused dais_exec: {line}; K1 {ms:.4f} ms for {len(data)} samples, equal to the '
-          f'plain version; {FUSED_REPEATS} launches on the same inputs, none differing', flush=True)  # fmt: skip
+    print(f'[{card}] fusion {name} fused dais_exec: {line}; K1 {ms:.4f} ms for {len(data)} samples, bound '
+          f'{bound_ms:.4f} ms by {bound_by}, equal to the plain version; {FUSED_REPEATS} launches on the same inputs, '
+          f'none differing', flush=True)  # fmt: skip
+
+
+# ---------------------------------------------------------------------------
+# the firmware path: codegen, its precondition, the PyTorch front end
+# ---------------------------------------------------------------------------
+
+
+def corrupted_mul_program():
+    """A program the codegen precondition must refuse: a product of two
+    traced inputs (``mul``) whose annotation is narrowed 64-fold, the port's
+    counterpart of the reference's ``mul.narrowed_interval`` corruption."""
+    from da4ml_tpu_torch.ir import QInterval
+    from da4ml_tpu_torch.trace import FixedVariableArrayInput, HWConfig, comb_trace
+
+    inp = FixedVariableArrayInput(4, hwconf=HWConfig(1, -1, -1), solver_options={'backend': 'cpp'})
+    x = inp.quantize(np.ones(4), np.full(4, 3), np.full(4, 2))
+    comb = comb_trace(inp, x[:2] * x[2:])
+    ops = list(comb.ops)
+    k = next(i for i, op in enumerate(ops) if op.opcode == 7)
+    q = ops[k].qint
+    ops[k] = ops[k]._replace(qint=QInterval(q.min / 64.0, q.max / 64.0, q.step))
+    return comb._replace(ops=ops)
+
+
+def firmware_flagship(torch, comb, tmp, card: str) -> dict:
+    """The flagship program written as Verilog and VHDL projects at latency
+    ``FIRMWARE_CUTOFF`` (``PROJECT_DIGESTS``); ``predict(backend='interp')``
+    on ``FIRMWARE_SAMPLES`` samples through K1 (its count reset just before,
+    read just after), equal to the stage-by-stage reference interpreter and
+    each stage's K1 to its plain version; ``predict(backend='netlist')`` of
+    both projects on the first ``FLAGSHIP_NETLIST_SAMPLES``, equal to K1's
+    rows. Prints the phase's wall time by step."""
+    from da4ml_tpu_torch.codegen import VerilogModel, VHDLModel
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import executor_for_binary
+
+    laps = Laps()
+    models, write_s, files = {}, {}, {}
+    for flavor, cls in (('verilog', VerilogModel), ('vhdl', VHDLModel)):
+        t0 = time.perf_counter()
+        models[flavor] = cls(comb, 'model', tmp / flavor, latency_cutoff=FIRMWARE_CUTOFF).write()
+        write_s[flavor] = time.perf_counter() - t0
+        files[flavor] = sum(1 for p in (tmp / flavor).rglob('*') if p.is_file())
+        digest = project_digest(tmp / flavor)
+        assert digest == PROJECT_DIGESTS[flavor], f"firmware: the flagship's {flavor} project differs ({digest})"
+    laps.lap('write')
+    rtl = models['verilog']
+    pipe = rtl.solution
+    assert rtl.is_pipeline and rtl.register_layers == 1
+    data = np.random.default_rng(20261021).uniform(-8, 8, (FIRMWARE_SAMPLES, comb.shape[0]))
+    cuda_backend.reset_counts()
+    t0 = time.perf_counter()
+    y = rtl.predict(data, backend='interp')
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = cuda_backend.launches
+    assert launches >= len(pipe.stages), f'firmware: {launches} K1 launches for {len(pipe.stages)} stages'
+    assert y.shape == (FIRMWARE_SAMPLES, comb.shape[1]) and np.isfinite(y).all()
+    t0 = time.perf_counter()
+    assert np.array_equal(rtl.predict(data, backend='interp'), y), 'firmware flagship: a second call differs'
+    warm_s = time.perf_counter() - t0
+    laps.lap('predict')
+    net_s = {}
+    for flavor, model in models.items():
+        t0 = time.perf_counter()
+        yn = model.predict(data[:FLAGSHIP_NETLIST_SAMPLES], backend='netlist')
+        net_s[flavor] = time.perf_counter() - t0
+        assert np.array_equal(yn, y[:FLAGSHIP_NETLIST_SAMPLES]), f'firmware flagship: the {flavor} netlist differs from K1'
+    laps.lap('netlist')
+    binaries = [stage.to_binary() for stage in pipe.stages]
+    stage_out = reference_stages([decode(b) for b in binaries], data)
+    if not np.array_equal(y, stage_out[-1]):
+        bad = np.flatnonzero((y != stage_out[-1]).any(1))
+        raise AssertionError(f'firmware flagship: K1 differs from the reference interpreter in {len(bad)} rows '
+                             f'(first {bad[:10].tolist()})')  # fmt: skip
+    laps.lap('reference interpreter')
+    stage_ms, bound_ms, err = [], 0.0, 0.0
+    for k, (binary, want) in enumerate(zip(binaries, [data, *stage_out[:-1]])):
+        ex = executor_for_binary(binary)
+        x = ex.int_inputs(want)
+        err = max(err, k1_equal_plain(torch, ex, x, 1 << 18, want, f'firmware flagship stage {k}'))
+        stage_ms.append(cuda_ms(lambda: ex.fn_int(x), reps=10))
+        bound_ms += k1_bound_ms(ex, FIRMWARE_SAMPLES)[0]
+    laps.lap('K1 against its plain version, timed')
+    print(f"[{card}] firmware flagship (latency cutoff {FIRMWARE_CUTOFF}: {len(pipe.stages)} stages, "
+          f"{sum(len(s.ops) for s in pipe.stages)} ops): Verilog written in {write_s['verilog']:.3f} s "
+          f"({files['verilog']} files), VHDL in {write_s['vhdl']:.3f} s ({files['vhdl']} files), each project equal "
+          f"to the JAX package's; predict(backend='interp') on {FIRMWARE_SAMPLES} samples {call_s:.4f} s the first "
+          f"call, {warm_s:.4f} s the second (host clock), {launches} K1 launches, K1 {sum(stage_ms):.4f} ms over the stages "
+          f"({', '.join(f'{ms:.4f}' for ms in stage_ms)}), bound {bound_ms:.4f} ms; equal to the stage-by-stage "
+          f"reference interpreter and each stage to its plain version (max abs err {err}); netlist on "
+          f"{FLAGSHIP_NETLIST_SAMPLES} samples equal to K1's rows: Verilog {net_s['verilog']:.3f} s, VHDL "
+          f"{net_s['vhdl']:.3f} s (host clock, {cpu_model()})", flush=True)  # fmt: skip
+    print(f'firmware flagship wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
+    return {'k1_launches': launches, 'k1_ms': sum(stage_ms), 'k1_bound_ms': bound_ms, 'k1_err': err}
+
+
+def firmware_twin(torch, ts, fused_cse, tmp, card: str) -> dict:
+    """The config-5 twin (``models.config5_twin``, full width) through the
+    PyTorch front end: ``trace_model`` with ``'cpp'`` and with ``'torch'``
+    on the card (K2's count reset just before, read just after; no lane to the
+    host, no ``init_cache`` call; every rung call equal to K2's plain
+    version), each program equal to the JAX package's trace with the same
+    solver (``TWIN_DIGESTS``); ``predict`` on ``FIRMWARE_SAMPLES`` samples
+    of the input grid through K1 (count reset just before, read just after),
+    equal to its plain version on the card and to the native host
+    interpreter on every sample, and to the reference interpreter, the
+    module's own float64 forward and the ``'cpp'`` program on the first
+    ``TWIN_FORWARD_SAMPLES``; its Verilog project at latency
+    ``FIRMWARE_CUTOFF`` (``PROJECT_DIGESTS['twin_verilog']``) and the netlist
+    on ``TWIN_NETLIST_SAMPLES`` samples, equal to K1's rows.
+
+    The native interpreter runs on a host thread (its OpenMP team on all
+    cores but one) while the rung checks, K1's check against its plain
+    version and the reference checks run; what is timed runs before it starts
+    or after it ends. Prints the phase's wall time by step."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from da4ml_tpu_torch import native
+    from da4ml_tpu_torch.codegen import VerilogModel
+    from da4ml_tpu_torch.converter import trace_model
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.models import CONFIG5_INPUTS_KIF, config5_twin
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+    from da4ml_tpu_torch.trace import HWConfig, comb_trace
+
+    model = config5_twin()
+    laps = Laps()
+
+    def trace(opts):
+        return comb_trace(*trace_model(model, HWConfig(1, -1, -1), opts, inputs_kif=CONFIG5_INPUTS_KIF))
+
+    t0 = time.perf_counter()
+    comb_cpp = trace({'backend': 'cpp'})
+    cpp_s = time.perf_counter() - t0
+    laps.lap("trace 'cpp'")
+    pmax0 = ts.search_stats['pmax_host_fallbacks']
+    with RungRecorder(ts, fused_cse) as rungs:
+        fused_cse.reset_counts()
+        t0 = time.perf_counter()
+        comb = trace({'backend': 'torch'})
+        torch.cuda.synchronize()
+        dev_s = time.perf_counter() - t0
+        k2_launches = fused_cse.launches
+    pmax_routes = ts.search_stats['pmax_host_fallbacks'] - pmax0
+    assert k2_launches == len(rungs.calls) > 0, 'twin: K2 must launch once per rung call'
+    assert rungs.init_cache_calls == 0, 'twin: the device search built a score cache outside K2'
+    assert pmax_routes == 0, f'twin: {pmax_routes} lanes went to the host solver'
+    digests = {k: hashlib.sha256(c.to_binary().astype('<i4').tobytes()).hexdigest()
+               for k, c in (('cpp', comb_cpp), ('jax', comb))}  # fmt: skip
+    assert digests == TWIN_DIGESTS, f"twin: the traces differ from the JAX package's with the same solver: {digests}"
+    laps.lap("trace 'torch'")
+    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs)
+    laps.lap('K2 timed')
+
+    binary = comb.to_binary()
+    prog = decode(binary)
+    rng = np.random.default_rng(20261022)
+    data = np.floor(rng.uniform(-8, 8, (FIRMWARE_SAMPLES, prog.n_in)) * 4) / 4
+    cuda_backend.reset_counts()
+    t0 = time.perf_counter()
+    y = comb.predict(data)
+    torch.cuda.synchronize()
+    call_s = time.perf_counter() - t0
+    launches = cuda_backend.launches
+    assert launches > 0 and y.shape == (FIRMWARE_SAMPLES, prog.n_out) and np.isfinite(y).all()
+    t0 = time.perf_counter()
+    assert np.array_equal(comb.predict(data), y), 'twin: a second call differs'
+    warm_s = time.perf_counter() - t0
+    laps.lap('predict')
+    ex = DaisExecutor(prog)
+    x = ex.int_inputs(data)
+    ms = cuda_ms(lambda: ex.fn_int(x), reps=5)
+    bound_ms, bound_by = k1_bound_ms(ex, FIRMWARE_SAMPLES)
+    laps.lap('K1 timed')
+
+    native_threads = max(1, (os.cpu_count() or 1) - 1)
+
+    def native_run():
+        t0 = time.perf_counter()
+        out = native.run_binary(binary, data, n_threads=native_threads)
+        return out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(1) as host:
+        native_job = host.submit(native_run)
+        checked = [check_rung(torch, ts, fused_cse, inp, spec, f'twin {k}', timed=False)
+                   for k, (inp, spec) in enumerate(rungs.calls)]  # fmt: skip
+        k2_bound = rung_bound_ms(checked)
+        laps.lap('rung checks and bounds')
+        err = k1_equal_plain(torch, ex, x, MODEL_PLAIN_ROWS, data, 'twin')
+        laps.lap('K1 against its plain version')
+        reference_equal(prog, data[:TWIN_FORWARD_SAMPLES], y[:TWIN_FORWARD_SAMPLES])
+        x_fwd = torch.from_numpy(data[:TWIN_FORWARD_SAMPLES].reshape(-1, *model.input_shape))
+        with torch.no_grad():
+            fwd = torch.func.vmap(model)(x_fwd).numpy()
+        assert np.array_equal(y[:TWIN_FORWARD_SAMPLES], fwd), "twin: K1 differs from the module's float64 forward"
+        # the 'cpp' trace computes the same function
+        reference_equal(decode(comb_cpp.to_binary()), data[:TWIN_FORWARD_SAMPLES], y[:TWIN_FORWARD_SAMPLES])
+        laps.lap('reference interpreter and forward')
+        y_native, native_s = native_job.result()
+        laps.lap('native interpreter, after the checks')
+    assert np.array_equal(y, y_native), 'twin: K1 differs from the native host interpreter'
+
+    t0 = time.perf_counter()
+    rtl = VerilogModel(comb, 'model', tmp / 'twin', latency_cutoff=FIRMWARE_CUTOFF).write()
+    write_s = time.perf_counter() - t0
+    n_files = sum(1 for p in (tmp / 'twin').rglob('*') if p.is_file())
+    digest = project_digest(tmp / 'twin')
+    assert digest == PROJECT_DIGESTS['twin_verilog'], f"twin: the Verilog project differs from the reference's ({digest})"
+    laps.lap('write')
+    t0 = time.perf_counter()
+    yn = rtl.predict(data[:TWIN_NETLIST_SAMPLES], backend='netlist')
+    net_s = time.perf_counter() - t0
+    assert np.array_equal(yn, y[:TWIN_NETLIST_SAMPLES]), 'twin: the netlist differs from K1'
+    laps.lap('netlist')
+    print(f"[{card}] firmware twin (config-5 nn.Module, {prog.n_in} inputs): trace_model 'cpp' {cpp_s:.3f} s ({len(comb_cpp.ops)} "
+          f"ops), 'torch' {dev_s:.3f} s on the card ({len(comb.ops)} ops), each equal to the JAX package's trace with "
+          f"the same solver ('jax' for 'torch'); {len(rungs.calls)} rung calls, K2 launched {k2_launches} times, "
+          f"{k2_ms:.4f} ms on the card, bound {k2_bound:.6f} ms, each rung call "
+          f"({sum(r['iters'] for r in checked)} iterations) equal to its plain version on the card; no init_cache "
+          f"call, no host lane", flush=True)  # fmt: skip
+    print(f"[{card}] firmware twin: predict on {FIRMWARE_SAMPLES} samples {call_s:.4f} s the first call, "
+          f"{warm_s:.4f} s the second (host clock), {launches} K1 launches, K1 {ex.dtype} {ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}; equal to the plain version (max abs err "
+          f"{err}), the native host interpreter ({native_s:.3f} s on {native_threads} threads, beside the checks), "
+          f"and on the first {TWIN_FORWARD_SAMPLES} the reference "
+          f"interpreter and the module's float64 forward (|y| up to "
+          f"{np.abs(y).max():.0f}); Verilog ({len(rtl.solution.stages)} stages) written in {write_s:.3f} s "
+          f"({n_files} files), equal to the JAX package's; netlist on {TWIN_NETLIST_SAMPLES} samples {net_s:.3f} s, "
+          f"equal to K1's rows", flush=True)  # fmt: skip
+    print(f'firmware twin wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
+    return {'k1_launches': launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked),
+            'k1_err': err, 'k1_ms': ms, 'k1_bound_ms': bound_ms, 'k2_ms': k2_ms, 'k2_bound_ms': k2_bound}  # fmt: skip
+
+
+def firmware_precondition(tmp) -> None:
+    """``write()`` refuses a corrupted program (``corrupted_mul_program``)
+    with ``VerificationError`` before ``src/`` exists; with
+    ``DA4ML_VERIFY=0`` it writes."""
+    from da4ml_tpu_torch.analysis import VerificationError
+    from da4ml_tpu_torch.codegen import VerilogModel
+
+    bad, path = corrupted_mul_program(), tmp / 'bad'
+    try:
+        VerilogModel(bad, 'bad_model', path).write()
+    except VerificationError as e:
+        message = str(e)
+    else:
+        raise AssertionError('the codegen precondition let a corrupted program through')
+    assert 'Q210' in message and 'precondition' in message and not (path / 'src').exists(), message
+    saved = os.environ.get('DA4ML_VERIFY')
+    os.environ['DA4ML_VERIFY'] = '0'
+    try:
+        VerilogModel(bad, 'bad_model', path).write()
+    finally:
+        if saved is None:
+            del os.environ['DA4ML_VERIFY']
+        else:
+            os.environ['DA4ML_VERIFY'] = saved
+    assert (path / 'src').exists()
+    print(f'firmware precondition: a narrowed multiplier interval refused before src/ exists '
+          f'({message.splitlines()[1].strip()}); with DA4ML_VERIFY=0 the project is written', flush=True)
+
+
+def run_firmware(torch, ts, fused_cse, comb, card: str) -> dict:
+    """The firmware phase: ``firmware_flagship``, ``firmware_twin`` and
+    ``firmware_precondition`` in one scratch directory."""
+    import tempfile
+    from pathlib import Path
+
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_firmware_') as tmp:
+        flagship = firmware_flagship(torch, comb, Path(tmp), card)
+        twin = firmware_twin(torch, ts, fused_cse, Path(tmp), card)
+        firmware_precondition(Path(tmp))
+    return {'flagship': flagship, 'twin': twin}
 
 
 def main() -> int:
@@ -1528,6 +1940,8 @@ def main() -> int:
     from da4ml_tpu_torch.runtime.reference import run_program
     from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
 
+    t_start = time.perf_counter()
+    phases = Laps()
     card = card_line()
     print(card, flush=True)
     print(f'host: {cpu_model()}, {os.cpu_count()} cores', flush=True)
@@ -1572,6 +1986,7 @@ def main() -> int:
           f'-> {native_build.lib_path()}', flush=True)  # fmt: skip
     assert native.load_lib() is not None, f'the native library did not load: {native.load_error()}'
     assert native.has_solver() and native.has_emit()
+    phases.lap('builds')
 
     # phase 2: the flagship through each host solver; 'cpu' spawns its worker
     # pool while the native library is loaded in this process
@@ -1591,9 +2006,11 @@ def main() -> int:
     print(f"solve: host CMVM (host clock, {cpu_model()}): 'cpu' {host_s['cpu']:.3f} s ({os.cpu_count()} spawned "
           f"workers), 'cpp' {host_s['cpp']:.3f} s (OpenMP's default thread count), 'auto' {host_s['auto']:.3f} s "
           f"(resolved to 'cpp'); programs byte-identical; cost {comb.cost}", flush=True)  # fmt: skip
+    phases.lap('host solves')
 
     # phase 3: K1 corpus, kernel vs plain version on the card
     check_corpus(torch, DaisExecutor, cuda_backend, run_program, k1_regs)
+    phases.lap('K1 corpus')
 
     # phase 4: K2's main path — the flagship through the device search, its
     # wall time on the host clock with no stage timer inside
@@ -1644,8 +2061,11 @@ def main() -> int:
               f'{clock_s["decomposition"]:.4f} s, emission {clock_s["emission"]:.4f} s, rung ladder and argmin '
               f'{other_s:.4f} s', flush=True)  # fmt: skip
 
+    phases.lap('device search')
+
     # phase 5: K1's main path at 2^20 samples, on the device-solved program
     dais = run_dais_flagship(torch, comb_dev, card, k1_regs)
+    phases.lap('K1 flagship')
 
     # phase 6: K2 corpus — the flagship's rungs (timed, phases of each) and
     # random trit lanes
@@ -1687,7 +2107,7 @@ def main() -> int:
     assert {r['placement'] for r in rows} == {'shared', 'global'}, 'K2 must run both placements'
     flag_rows = [r for r in rows if r['name'].startswith('flagship')]
     k2_ms, k2_plain = sum(r['ms'] for r in flag_rows), sum(r['plain_ms'] for r in flag_rows)
-    k2_bound = sum(max(r['bytes_ms'], r['ops_ms']) for r in flag_rows)
+    k2_bound = rung_bound_ms(flag_rows)
     ops_ms, bytes_ms = sum(r['ops_ms'] for r in flag_rows), sum(r['bytes_ms'] for r in flag_rows)
     part = {k: sum(r[k] for r in flag_rows) for k in ('int_build_ms', 'fp_build_ms', 'int_loop_ms', 'fp_loop_ms')}
     print(f'[{card}] fused_cse: {k2_ms:.4f} ms over the flagship\'s {len(flag_rows)} rungs '
@@ -1696,6 +2116,7 @@ def main() -> int:
           f'(operations {ops_ms:.6f} ms: int32 cache build {part["int_build_ms"]:.6f} ms and recount '
           f'{part["int_loop_ms"]:.6f} ms, fp32 cache build {part["fp_build_ms"]:.6f} ms and scores, merge and argmax '
           f'{part["fp_loop_ms"]:.6f} ms; HBM {bytes_ms:.6f} ms); K2 {k2_ms / k2_bound:.0f}x the bound')  # fmt: skip
+    phases.lap('K2 corpus')
 
     # phase 7: the wider six-bit layers of bench.py through the device search
     wrng = np.random.default_rng(20260729)
@@ -1720,15 +2141,20 @@ def main() -> int:
           f'({", ".join(f"{t:.3f}" for t in native_s)} s a layer, host clock, {cpu_model()}); cost '
           f'{[float(s.cost) for s in sols]} (total {sum(float(s.cost) for s in sols)}), {len(wide_rungs.calls)} rungs, '
           f'largest P {max(s.P for _, s in wide_rungs.calls)}')  # fmt: skip
+    phases.lap('wider layers')
 
     # phase 8: the native library's OpenMP runtime beside CUDA torch's
     openmp_check(torch, native, native_build, comb_dev, emit_calls, kernels)
+    phases.lap('OpenMP')
 
     # phases 9-11: the traced workloads through the port's tracer, K2 and K1:
     # the config-5 model, the fusion workloads, the 256x256 conv front end
     model = run_config5(torch, ts, fused_cse, native, card, k1_regs)
+    phases.lap('config 5')
     fusion = run_fusion(torch, ts, fused_cse, card, k1_regs)
+    phases.lap('fusion')
     wide_conv = run_wide_conv(torch, card, k1_regs)
+    phases.lap('wide conv')
 
     # phases 12-13: the conversion on the card at the integer types' edges;
     # bench.py's pipeline model through the four pipeline modes
@@ -1736,17 +2162,27 @@ def main() -> int:
     assert wide.dtype == torch.int64
     conversion_edges(torch, DaisExecutor(prog), wide)
     pipeline_launches = run_pipeline_model(torch, card)
+    phases.lap('conversion edges and pipeline model')
 
-    # phase 14: the port imported nothing of JAX
+    # phase 14: the firmware path — RTL codegen of the flagship and of the
+    # config-5 twin traced from an nn.Module through K2, K1 on both, the
+    # netlist simulators, the codegen precondition
+    firmware = run_firmware(torch, ts, fused_cse, comb_dev, card)
+    phases.lap('firmware')
+
+    # phase 15: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
     k1_paths = {'flagship': dais['launches'], 'config5': model['k1_launches'], 'fusion': fusion['k1_launches'],
                 'wide_conv': wide_conv['k1_launches'],
                 **{f'fusion_{mode}': n for mode, n in fusion['k1_modes'].items()},
-                **{f'pipeline_model_{mode}': n for mode, n in pipeline_launches.items()}}  # fmt: skip
-    k2_paths = {'flagship': k2_launches, 'config5': model['k2_launches'], 'fusion': fusion['k2_launches']}
+                **{f'pipeline_model_{mode}': n for mode, n in pipeline_launches.items()},
+                'firmware_flagship': firmware['flagship']['k1_launches'], 'firmware_twin': firmware['twin']['k1_launches']}  # fmt: skip
+    k2_paths = {'flagship': k2_launches, 'config5': model['k2_launches'], 'fusion': fusion['k2_launches'],
+                'firmware_twin': firmware['twin']['k2_launches']}  # fmt: skip
+    k1_err = max(dais['max_abs_err'], firmware['flagship']['k1_err'], firmware['twin']['k1_err'])
     kernels_line = [
-        {**dais, 'launches': sum(k1_paths.values()), 'launches_by_path': k1_paths},
+        {**dais, 'max_abs_err': k1_err, 'launches': sum(k1_paths.values()), 'launches_by_path': k1_paths},
         {
             'name': 'fused_cse',
             'route': 'cuda',
@@ -1754,7 +2190,8 @@ def main() -> int:
             'replaces': 'da4ml_tpu/cmvm/fused_cse.py:108',
             'launches': sum(k2_paths.values()),
             'launches_by_path': k2_paths,
-            'max_abs_err': max(max(r['max_abs_err'] for r in rows), model['k2_err'], fusion['k2_err']),
+            'max_abs_err': max(max(r['max_abs_err'] for r in rows), model['k2_err'], fusion['k2_err'],
+                               firmware['twin']['k2_err']),
             'ms': k2_ms,
             'plain_ms': k2_plain,
             'bound_ms': k2_bound,
@@ -1762,6 +2199,8 @@ def main() -> int:
             'library_ms': None,
         },
     ]
+    print(f'chip_smoke: wall time by phase (host clock, {cpu_model()}): {phases.line()}')
+    print(f'chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s (host clock)')
     print(json.dumps({'kernels': kernels_line}))
     print(card)
     device = {'platform': 'gpu', 'kind': torch.cuda.get_device_name(0), 'count': torch.cuda.device_count()}

@@ -173,12 +173,19 @@ class CombLogic(NamedTuple):
         }
 
     @classmethod
-    def from_dict(cls, data: dict) -> 'CombLogic':
+    def from_dict(cls, data: dict, verify: bool = True) -> 'CombLogic':
+        """Rebuild from ``to_dict`` output.
+
+        ``verify`` (default on) runs the well-formedness analysis pass, so a
+        corrupted saved program fails at load with structured diagnostics
+        (:class:`~..analysis.VerificationError`) instead of crashing
+        mid-replay or emitting wrong RTL.
+        """
         ops = [Op(o[0], o[1], o[2], o[3], QInterval(*o[4]), o[5], o[6]) for o in data['ops']]
         tables = data.get('lookup_tables')
         if tables is not None:
             tables = tuple(LookupTable.from_dict(t) for t in tables)
-        return cls(
+        comb = cls(
             shape=tuple(data['shape']),
             inp_shifts=data['inp_shifts'],
             out_idxs=data['out_idxs'],
@@ -189,15 +196,20 @@ class CombLogic(NamedTuple):
             adder_size=data['adder_size'],
             lookup_tables=tables,
         )
+        if verify:
+            from ..analysis import verify_or_raise
+
+            verify_or_raise(comb, context='CombLogic.from_dict', passes=('wellformed',))
+        return comb
 
     def save(self, path: str | Path):
         with open(path, 'w') as f:
             json.dump(self.to_dict(), f, separators=(',', ':'))
 
     @classmethod
-    def load(cls, path: str | Path) -> 'CombLogic':
+    def load(cls, path: str | Path, verify: bool = True) -> 'CombLogic':
         with open(path) as f:
-            return cls.from_dict(json.load(f))
+            return cls.from_dict(json.load(f), verify=verify)
 
     # ---------------------------------------------------------- DAIS binary
 
@@ -339,17 +351,24 @@ class Pipeline(NamedTuple):
         return {'stages': [s.to_dict() for s in self.stages]}
 
     @classmethod
-    def from_dict(cls, data: dict) -> 'Pipeline':
-        return cls(stages=tuple(CombLogic.from_dict(s) for s in data['stages']))
+    def from_dict(cls, data: dict, verify: bool = True) -> 'Pipeline':
+        """Rebuild from ``to_dict`` output; with ``verify`` the well-formedness
+        pass checks every stage plus the stage-to-stage interfaces."""
+        pipe = cls(stages=tuple(CombLogic.from_dict(s, verify=False) for s in data['stages']))
+        if verify:
+            from ..analysis import verify_or_raise
+
+            verify_or_raise(pipe, context='Pipeline.from_dict', passes=('wellformed',))
+        return pipe
 
     def save(self, path: str | Path):
         with open(path, 'w') as f:
             json.dump(self.to_dict(), f, separators=(',', ':'))
 
     @classmethod
-    def load(cls, path: str | Path) -> 'Pipeline':
+    def load(cls, path: str | Path, verify: bool = True) -> 'Pipeline':
         with open(path) as f:
-            return cls.from_dict(json.load(f))
+            return cls.from_dict(json.load(f), verify=verify)
 
     def fuse(self, report: bool = False):
         """Merge every stage into ONE well-formed :class:`CombLogic`.

@@ -102,6 +102,18 @@ class LookupTable:
         size = 2 ** (int(k) + i + f)
         return pad_left, size - len(self.table) - pad_left
 
+    def padded_table(self, key_qint: QInterval) -> NDArray[np.float64]:
+        """Table indexed directly by the key's raw binary representation.
+
+        Unreachable entries are NaN; for signed keys the array is rolled so
+        negative two's-complement codes index the upper half.
+        """
+        pad_left, pad_right = self.pads(key_qint)
+        data = np.pad(self.table.astype(np.float64), (pad_left, pad_right), constant_values=np.nan)
+        if key_qint.min < 0:
+            data = np.roll(data, len(data) // 2)
+        return data
+
     def to_dict(self) -> dict:
         return {
             'spec': {

@@ -8,16 +8,21 @@ Each :class:`OpSpec` row describes one opcode family:
   ``kernel`` (bit-exact int64 over a decoded :class:`~.dais_binary.DaisProgram`
   — the table-generated *reference interpreter* in ``runtime.reference`` that
   the torch and CUDA executors are held against);
-- **operand kinds** (``id0``/``reads_id1``/``cond_in_data``);
+- **abstract semantics**: the QInterval ``transfer`` function the
+  ``analysis.interval`` verifier pass dispatches on, producer conventions
+  included (sign-flip mixing, container-defining annotations);
+- **legality**: operand kinds (``id0``/``reads_id1``/``cond_in_data``),
+  payload sub-field ranges (``payload_check``) and shift extraction
+  (``shift_of``) read by ``analysis.wellformed``;
 - **vectorization class**: the group id the level lowering
   (``runtime.torch_backend``) packs ops by;
 - **lowering**: the name of the family's case in the CUDA kernel's switch
   (``runtime.cuda_backend.LOWERINGS``, audited both ways at its import).
 
 Counterpart of ``da4ml_tpu/ir/optable.py``; its ``pallas_lower`` column is
-``lower`` here, keyed by the same eleven names. The verifier columns
-(transfer functions, payload checks, mutations, soundness samplers) belong to
-the analysis passes, which the port does not carry yet.
+``lower`` here, keyed by the same eleven names. The reference's soundness
+samplers and mutation catalog are not carried: the port runs the verifier's
+default passes, not its self-tests.
 """
 
 from __future__ import annotations
@@ -27,7 +32,15 @@ from typing import Callable, NamedTuple
 import numpy as np
 
 from ..ops.numeric import apply_binary_bit_op, apply_quantize, apply_relu, apply_unary_bit_op
-from .types import Op, QInterval, minimal_kif
+from .types import Op, QInterval, minimal_kif, qint_add
+
+#: largest plausible power-of-two shift in an op payload (DAIS values are
+#: fixed-point with at most a few hundred bits; anything beyond is corruption
+#: and would overflow float replay)
+SHIFT_LIMIT = 256
+
+_UNARY_BIT_SUBOPS = (0, 1, 2)  # NOT, OR-reduce, AND-reduce
+_BINARY_BIT_SUBOPS = (0, 1, 2)  # AND, OR, XOR
 
 
 def i32(x: int) -> int:
@@ -275,6 +288,170 @@ def _rk_bit_binary(st: RefState, i: int) -> np.ndarray:
 
 
 # ---------------------------------------------------------------------------
+# QInterval transfer functions (abstract interpretation, analysis/interval.py)
+#
+# Each returns ``(computed_interval, checks)`` where checks is a list of
+# ``(rule_id, message)`` pairs. Producer conventions honored here are
+# documented in analysis/interval.py.
+# ---------------------------------------------------------------------------
+
+_EPS = 1e-9
+
+
+def _tol(*vals: float) -> float:
+    return _EPS * max(1.0, *(abs(v) for v in vals if np.isfinite(v)))
+
+
+def _contains(outer: QInterval, lo: float, hi: float, step: float) -> bool:
+    t = _tol(lo, hi)
+    return outer.min <= lo + t and outer.max >= hi - t and outer.step <= step * (1.0 + _EPS)
+
+
+def _neg_pair(lo: float, hi: float) -> tuple[float, float]:
+    return -hi, -lo
+
+
+def _tf_quantize(comb, op: Op, q: QInterval, operand) -> tuple[QInterval, list]:
+    # quantize family (copy / relu / quantize): the annotation defines the
+    # result container; warn when it is strictly coarser than the operand's.
+    checks: list[tuple[str, str]] = []
+    src = operand(int(op.id0)) if op.opcode != -1 else None
+    if src is not None and q.step > src.step * (1.0 + _EPS):
+        checks.append(
+            ('Q220', f'quantize drops precision: result step {q.step} is coarser than operand step {src.step}')
+        )
+    return q, checks
+
+
+def _tf_add(comb, op: Op, q: QInterval, operand) -> tuple[QInterval, list]:
+    q0, q1 = operand(int(op.id0)), operand(int(op.id1))
+    if q0 is None or q1 is None:
+        return q, []
+    try:
+        c = qint_add(q0, q1, int(op.data), False, op.opcode == 1)
+    except OverflowError:
+        return q, []
+    if _contains(q, c.min, c.max, c.step):
+        return c, []
+    nlo, nhi = _neg_pair(c.min, c.max)
+    if _contains(q, nlo, nhi, c.step):
+        return c, []
+    # CMVM sign-flip mixing can shift the position; span and step are
+    # invariant under it, so that is the weakest sound criterion
+    span_c, span_q = c.max - c.min, q.max - q.min
+    if span_q + _tol(span_c) >= span_c and q.step <= c.step * (1.0 + _EPS):
+        return c, []
+    return c, [
+        ('Q210', f'annotation [{q.min}, {q.max}] step {q.step} cannot hold computed [{c.min}, {c.max}] step {c.step}')
+    ]
+
+
+def _tf_const_add(comb, op: Op, q: QInterval, operand) -> tuple[QInterval, list]:
+    q0 = operand(int(op.id0))
+    if q0 is None:
+        return q, []
+    c_add = int(op.data) * q.step
+    c = QInterval(q0.min + c_add, q0.max + c_add, min(q0.step, q.step))
+    if _contains(q, c.min, c.max, c.step) or _contains(q, *_neg_pair(c.min, c.max), c.step):
+        return c, []
+    return c, [('Q210', f'annotation [{q.min}, {q.max}] cannot hold operand + {c_add} = [{c.min}, {c.max}]')]
+
+
+def _tf_const(comb, op: Op, q: QInterval, operand) -> tuple[QInterval, list]:
+    value = int(op.data) * q.step
+    c = QInterval(value, value, q.step)
+    t = _tol(value)
+    if q.min - t <= value <= q.max + t or q.min - t <= -value <= q.max + t:
+        return c, []
+    return c, [('Q210', f'constant value {value} lies outside its annotation [{q.min}, {q.max}]')]
+
+
+def _tf_trusted(comb, op: Op, q: QInterval, operand) -> tuple[QInterval, list]:
+    # branch-correlated mux annotations are legitimately narrower than the
+    # branch hull (e.g. ``abs``), and bitwise annotations define their
+    # container — the annotation is trusted both as the result container
+    # and for downstream propagation
+    return q, []
+
+
+def _tf_mul(comb, op: Op, q: QInterval, operand) -> tuple[QInterval, list]:
+    q0, q1 = operand(int(op.id0)), operand(int(op.id1))
+    if q0 is None or q1 is None:
+        return q, []
+    if int(op.id0) == int(op.id1):
+        # squaring is bounded by the squared endpoints, not the 4-corner hull
+        ends = [q0.min * q0.min, q0.max * q0.max]
+        if q0.min < 0 < q0.max:
+            ends.append(0.0)
+    else:
+        ends = [q0.min * q1.min, q0.min * q1.max, q0.max * q1.min, q0.max * q1.max]
+    c = QInterval(min(ends), max(ends), q0.step * q1.step)
+    if _contains(q, c.min, c.max, c.step) or _contains(q, *_neg_pair(c.min, c.max), c.step):
+        return c, []
+    return c, [
+        ('Q210', f'annotation [{q.min}, {q.max}] step {q.step} cannot hold product [{c.min}, {c.max}] step {c.step}')
+    ]
+
+
+def _tf_lookup(comb, op: Op, q: QInterval, operand) -> tuple[QInterval, list]:
+    tables = comb.lookup_tables
+    tbl = int(op.data)
+    if tables is None or not 0 <= tbl < len(tables):
+        return q, []  # W110 already flagged it
+    ft = tables[tbl].float_table
+    lo, hi = float(ft.min()), float(ft.max())
+    step = tables[tbl].spec.out_qint.step
+    if _contains(q, lo, hi, step) or _contains(q, *_neg_pair(lo, hi), step):
+        return q, []
+    return q, [
+        (
+            'Q221',
+            f'lookup annotation [{q.min}, {q.max}] step {q.step} disagrees with its '
+            f'table range [{lo}, {hi}] step {step}',
+        )
+    ]
+
+
+# ---------------------------------------------------------------------------
+# payload legality checks (analysis/wellformed.py)
+# ---------------------------------------------------------------------------
+
+
+def _pc_lookup(op: Op, n_tables: int | None) -> list[tuple[str, str]]:
+    tbl = int(op.data)
+    if n_tables is None:
+        return [('W110', f'lookup op references table {tbl} but the program carries no tables')]
+    if not 0 <= tbl < n_tables:
+        return [('W110', f'lookup op references table {tbl}, program has {n_tables} tables')]
+    return []
+
+
+def _pc_bit_unary(op: Op, n_tables: int | None) -> list[tuple[str, str]]:
+    if int(op.data) not in _UNARY_BIT_SUBOPS:
+        return [('W111', f'unary bitwise sub-opcode {int(op.data)} (valid: 0=NOT, 1=OR-reduce, 2=AND-reduce)')]
+    return []
+
+
+def _pc_bit_binary(op: Op, n_tables: int | None) -> list[tuple[str, str]]:
+    subop = (int(op.data) >> 56) & 0xFF
+    if subop not in _BINARY_BIT_SUBOPS:
+        return [('W111', f'binary bitwise sub-opcode {subop} (valid: 0=AND, 1=OR, 2=XOR)')]
+    return []
+
+
+def _shift_data(op: Op) -> int:
+    return int(op.data)
+
+
+def _shift_hi(op: Op) -> int:
+    return i32(int(op.data) >> 32)
+
+
+def _shift_lo(op: Op) -> int:
+    return i32(int(op.data))
+
+
+# ---------------------------------------------------------------------------
 # the table
 # ---------------------------------------------------------------------------
 
@@ -294,32 +471,47 @@ class OpSpec(NamedTuple):
     semantics: str
     replay: Callable  # float/symbolic semantics (CombLogic.__call__)
     kernel: Callable  # int64 reference semantics (RefState, i) -> row
+    defines_container: bool  # annotation is trusted as the result interval
+    shift_of: Callable[[Op], int] | None  # payload shift extraction (W106)
+    payload_check: Callable | None  # (op, n_tables) -> [(rule, msg)]
+    transfer: Callable  # QInterval transfer -> (computed, checks)
 
 
 OP_TABLE: tuple[OpSpec, ...] = (
     OpSpec('copy', 'copy', (-1,), 'lane', False, False, 0, 'copy', None,
-           'copy from input lane `id0` (implies quantization to the slot kif)', _rp_input, _rk_copy),
+           'copy from input lane `id0` (implies quantization to the slot kif)', _rp_input, _rk_copy,
+           True, None, None, _tf_quantize),
     OpSpec('add', 'add/sub', (0, 1), 'slot', True, False, 1, 'addsub', 'add',
-           '`buf[id0] ± buf[id1] * 2**data`', _rp_shift_add, _rk_shift_add),
+           '`buf[id0] ± buf[id1] * 2**data`', _rp_shift_add, _rk_shift_add,
+           False, _shift_data, None, _tf_add),
     OpSpec('relu', 'relu-quantize', (2, -2), 'slot', False, False, 2, 'relu', 'relu',
-           '`quantize(relu(±buf[id0]))`', _rp_relu, _rk_relu),
+           '`quantize(relu(±buf[id0]))`', _rp_relu, _rk_relu,
+           True, None, None, _tf_quantize),
     OpSpec('quant', 'quantize', (3, -3), 'slot', False, False, 3, 'quantize', 'quant',
-           '`quantize(±buf[id0])` (arithmetic shift + modular wrap)', _rp_quantize, _rk_quantize),
+           '`quantize(±buf[id0])` (arithmetic shift + modular wrap)', _rp_quantize, _rk_quantize,
+           True, None, None, _tf_quantize),
     OpSpec('cadd', 'const-add', (4,), 'slot', False, False, 4, 'const_add', 'cadd',
-           '`buf[id0] + data * qint.step` (constant add)', _rp_const_add, _rk_const_add),
+           '`buf[id0] + data * qint.step` (constant add)', _rp_const_add, _rk_const_add,
+           False, None, None, _tf_const_add),
     OpSpec('const', 'const', (5,), 'none', False, False, 5, 'const', 'const',
-           'constant definition: `data * qint.step`', _rp_const, _rk_const),
+           'constant definition: `data * qint.step`', _rp_const, _rk_const,
+           False, None, None, _tf_const),
     OpSpec('mux', 'msb-mux', (6, -6), 'slot', True, True, 6, 'msb_mux', 'mux',
-           'MSB mux: `msb(buf[cond]) ? buf[id0] : (±buf[id1]) << shift`', _rp_msb_mux, _rk_msb_mux),
+           'MSB mux: `msb(buf[cond]) ? buf[id0] : (±buf[id1]) << shift`', _rp_msb_mux, _rk_msb_mux,
+           True, _shift_hi, None, _tf_trusted),
     OpSpec('mul', 'mul', (7,), 'slot', True, False, 7, 'mul', 'mul',
-           '`buf[id0] * buf[id1]`', _rp_mul, _rk_mul),
+           '`buf[id0] * buf[id1]`', _rp_mul, _rk_mul,
+           False, None, None, _tf_mul),
     OpSpec('lookup', 'lut', (8,), 'slot', False, False, 8, 'lookup', 'lookup',
-           '`lookup_tables[data][index(buf[id0])]`', _rp_lookup, _rk_lookup),
+           '`lookup_tables[data][index(buf[id0])]`', _rp_lookup, _rk_lookup,
+           True, None, _pc_lookup, _tf_lookup),
     OpSpec('bitu', 'unary-bitwise', (9, -9), 'slot', False, False, 9, 'bit_unary', 'bitu',
            'unary bitwise on `±buf[id0]`; `data`: 0 = NOT, 1 = OR-reduce, 2 = AND-reduce',
-           _rp_bit_unary, _rk_bit_unary),
+           _rp_bit_unary, _rk_bit_unary,
+           True, None, _pc_bit_unary, _tf_trusted),
     OpSpec('bitb', 'binary-bitwise', (10,), 'slot', True, False, 10, 'bit_binary', 'bitb',
-           'binary bitwise AND/OR/XOR on aligned operands', _rp_bit_binary, _rk_bit_binary),
+           'binary bitwise AND/OR/XOR on aligned operands', _rp_bit_binary, _rk_bit_binary,
+           True, _shift_lo, _pc_bit_binary, _tf_trusted),
 )  # fmt: skip
 
 #: opcode -> its table row
@@ -327,6 +519,12 @@ OPCODE_TO_SPEC: dict[int, OpSpec] = {oc: spec for spec in OP_TABLE for oc in spe
 
 #: every opcode of the DAIS v1 table
 DAIS_V1_OPCODES = frozenset(OPCODE_TO_SPEC)
+
+#: opcodes whose id1 names a second operand slot
+BINARY_OPCODES = frozenset(oc for oc, spec in OPCODE_TO_SPEC.items() if spec.reads_id1)
+
+#: opcodes whose id0 names an input lane rather than an SSA slot
+COPY_OPCODES = frozenset(oc for oc, spec in OPCODE_TO_SPEC.items() if spec.id0 == 'lane')
 
 #: opcode -> level-lowering group (dense row index of the table)
 VECTOR_CLASS: dict[int, int] = {oc: spec.vector_class for oc, spec in OPCODE_TO_SPEC.items()}
@@ -348,15 +546,43 @@ def family_of(opcode: int | None) -> str | None:
     return spec.family if spec is not None else None
 
 
+def op_shift(op: Op) -> int | None:
+    """The power-of-two shift an op applies to its second operand, if any."""
+    spec = OPCODE_TO_SPEC.get(op.opcode)
+    if spec is None or spec.shift_of is None:
+        return None
+    return spec.shift_of(op)
+
+
+def op_operands(op: Op) -> list[int]:
+    """Buffer slots an op reads (input lanes of copy ops are *not* slots)."""
+    spec = OPCODE_TO_SPEC.get(op.opcode)
+    reads: list[int] = []
+    if spec is None:
+        return reads
+    if spec.id0 == 'slot':
+        reads.append(int(op.id0))
+    if spec.reads_id1:
+        reads.append(int(op.id1))
+    if spec.cond_in_data:
+        reads.append(int(op.data) & 0xFFFFFFFF)
+    return reads
+
+
 __all__ = [
     'OP_TABLE',
     'OPCODE_TO_SPEC',
     'DAIS_V1_OPCODES',
+    'BINARY_OPCODES',
+    'COPY_OPCODES',
     'VECTOR_CLASS',
+    'SHIFT_LIMIT',
     'OpSpec',
     'RefState',
     'spec_of',
     'family_of',
+    'op_shift',
+    'op_operands',
     'i32',
     'ref_shl',
     'ref_wrap',

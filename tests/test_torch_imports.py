@@ -45,6 +45,35 @@ def test_port_runs_without_jax_or_reference_package():
     assert proc.stdout.strip() == 'ok'
 
 
+_TRACE_MODEL = """
+import sys
+import tempfile
+import numpy as np
+from da4ml_tpu_torch.codegen import VerilogModel
+from da4ml_tpu_torch.converter import trace_model
+from da4ml_tpu_torch.models import config5_twin
+from da4ml_tpu_torch.trace import HWConfig, comb_trace
+model = config5_twin(limited=True)
+comb = comb_trace(*trace_model(model, HWConfig(1, -1, -1), {'backend': 'cpp'}, inputs_kif=(1, 3, 2)))
+with tempfile.TemporaryDirectory() as d:
+    rtl = VerilogModel(comb, 'twin', d, latency_cutoff=5).write()
+    data = np.floor(np.random.default_rng(0).uniform(-8, 8, (4, comb.shape[0])) * 4) / 4
+    assert np.array_equal(rtl.predict(data, backend='netlist'), rtl.predict(data, backend='interp', device='cpu'))
+bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'da4ml_tpu'))
+assert not bad, bad
+print('ok')
+"""
+
+
+def test_trace_model_and_codegen_import_neither_jax_nor_reference_package():
+    """The PyTorch front end on a torch module, then codegen and the netlist
+    simulator: neither jax nor da4ml_tpu is imported (the plugin registry
+    reads only the port's own entry-point group)."""
+    proc = subprocess.run([sys.executable, '-c', _TRACE_MODEL], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip() == 'ok'
+
+
 def test_host_solver_imports_no_torch():
     """The host solver's spawned workers import ``da4ml_tpu_torch.cmvm``;
     the device search (and torch) load only when asked for."""
@@ -83,6 +112,15 @@ def test_scans_cover_the_trace_modules():
     trace = {p.relative_to(ROOT).as_posix() for p in PORT_FILES if 'trace' in p.parts}
     ops = ('__init__', 'conv_utils', 'einsum_utils', 'quantization', 'reduce_utils', 'sorting')
     assert {f'da4ml_tpu_torch/trace/ops/{m}.py' for m in ops} | {'da4ml_tpu_torch/trace/pipeline.py'} <= trace
+
+
+def test_scans_cover_the_firmware_modules():
+    files = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    mods = ['analysis/' + m for m in ('__init__', 'diagnostics', 'wellformed', 'interval', 'deadcode', 'runner')]
+    mods += ['codegen/__init__', 'codegen/rtl/rtl_model', 'converter/__init__', 'converter/plugin',
+             'converter/torch_plugin', 'models']  # fmt: skip
+    mods += [f'codegen/rtl/{f}/{m}' for f in ('verilog', 'vhdl') for m in ('comb', 'io_wrapper', 'pipeline', 'netlist_sim')]
+    assert {f'da4ml_tpu_torch/{m}.py' for m in mods} <= files
 
 
 @pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))

@@ -380,3 +380,47 @@ def test_tracer_batches_distinct_rows_like_jax(rng):
     host = trace(FixedVariableArrayInput, HWConfig, comb_trace, backend='cpu')
     assert np.array_equal(got.to_binary(), want.to_binary())
     assert np.array_equal(got.to_binary(), host.to_binary())
+
+
+def _lane_by_lane_work(inputs, rec, cur, spec) -> dict[str, int]:
+    """``chip_smoke.rung_work``'s count replayed one lane and one iteration
+    at a time, every live row recounted after each substitution."""
+    E0, _, _, cur0, _ = (np.asarray(x) for x in inputs)
+    N, P, O, B = E0.shape
+    TB = 2 * B
+    work = {'bytes': 2 * (N * P * O * B + 16 * N * P) + 12 * N + 16 * N * spec.n_iters,
+            'int_build': 0, 'fp_build': 0, 'int_loop': 0, 'fp_loop': 0}  # fmt: skip
+    lane = torch.zeros(1, dtype=torch.int64)
+    for n in range(N):
+        if cur0[n] >= P:
+            continue
+        E = torch.from_numpy(E0[n : n + 1].copy())
+        live = int(E[0].ne(0).any(-1).any(-1).sum())
+        work['int_build'] += live * int((B - torch.nonzero(E[0])[:, 2]).sum())
+        work['fp_build'] += 2 * TB * live * live
+        for t in range(int(cur[n]) - int(cur0[n])):
+            id0, id1, sub, shift = (int(v) for v in rec[n, t])
+            i, j, s = (id0, id1, shift) if shift >= 0 else (id1, id0, -shift)
+            c = int(cur0[n]) + t
+            E[0, c] = ts._dev_substitute(E, lane, *(torch.tensor([v]) for v in (sub, s, i, j)), B)[0]
+            live = int(E[0].ne(0).any(-1).any(-1).sum())
+            dirty = sorted({i, j, c})
+            work['int_loop'] += B * live * int((E[0, dirty] != 0).sum())
+            work['fp_loop'] += TB * live + len(dirty) * (2 * (TB - 1) * live + TB * live + TB * live)
+    return work
+
+
+@pytest.mark.parametrize('P,O,B,adder,carry,n_rows', [(64, 8, 4, -1, -1, 16), (32, 8, 6, 3, 8, 12), (64, 8, 2, 2, -1, 40)])
+def test_smoke_rung_work_is_the_lane_by_lane_replay(P, O, B, adder, carry, n_rows):
+    """The smoke run's K2 bound replays every lane's iterations at once; it
+    counts what a replay lane by lane, live rows recounted each time, counts
+    (seeded random rungs run through K2's plain version)."""
+    from test_torch_pipeline import _chip_smoke
+
+    smoke = _chip_smoke()
+    spec = ts._KernelSpec(P, O, B, adder, carry, R_in=n_rows, topk=8)
+    inputs = smoke.random_rung(np.random.default_rng(P + n_rows), P, O, B, n_rows)
+    out = ts.rung_plain(*ts.rung_inputs(*inputs, spec, device='cpu'), spec)
+    rec, cur = out[3].numpy(), out[4].numpy()
+    assert (cur - inputs[3]).max() > 0
+    assert smoke.rung_work(ts, inputs, rec, cur, spec) == _lane_by_lane_work(inputs, rec, cur, spec)
