@@ -142,13 +142,32 @@ on them against its plain PyTorch version:
    K1's rows; a corrupted program refused by the codegen precondition and
    written with ``DA4ML_VERIFY=0``; prints trace, write, netlist and K1
    times, K1's and K2's bounds, and the wall time of each step;
-15. checks that neither jax nor da4ml_tpu was imported.
+15. the command line, each step ``python -m da4ml_tpu_torch`` in a child
+   process with its exit code checked: the flagship saved as ``.json`` and
+   converted to HLS projects (``vitis``, ``hlslib``, ``oneapi``) equal to
+   the JAX package's (``CLI_DIGESTS``), then converted with
+   ``--validate-rtl`` on ``CLI_FLAGSHIP_SAMPLES`` samples (K1 against the
+   g++ emulator); the config-5 twin saved with ``torch.save`` and
+   converted through the device search (K2) to an HLS project equal to the
+   JAX package's, its ``pipeline.json`` converted with ``--validate-rtl`` on
+   ``CLI_TWIN_SAMPLES`` samples (these two start right after phase 1:
+   the g++ build of the twin's emulator is the run's longest step);
+   ``verify --conformance`` of the twin's project and ``verify --fuzz``
+   (numpy, cpp and K1 against the reference interpreter, and the
+   transfer-soundness sweep) ok; ``verify --json`` of a corrupted program
+   equal to the JAX package's (``VERIFY_DIGEST``); ``lint-opcodes`` ok. In
+   this process, the same ``convert`` of the twin with every rung call held
+   to K2's plain version, K1 on both programs, the emulator the command
+   line built held to K1, and the g++ build, emulator and K1 times
+   (``cli_flagship``, ``cli_twin``);
+16. checks that neither jax nor da4ml_tpu was imported.
 
 Every count is set to 0 just before its path is driven and read just after;
 the kernel line gives each kernel's main-path launches summed over the
 paths and by path (K1's pipeline modes as ``fusion_<mode>`` and
 ``pipeline_model_<mode>``, the firmware phase as ``firmware_flagship`` and
-``firmware_twin``).
+``firmware_twin``, the command line's as ``cli_flagship`` and ``cli_twin``:
+its in-process calls, since a child's counts stay in the child).
 
 Prints the wall time of each phase, the kernel table as one JSON line,
 the card line, and last
@@ -169,8 +188,10 @@ import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -262,6 +283,26 @@ TWIN_FORWARD_SAMPLES = 4096
 #: samples through the netlist simulators: the flagship's projects, the twin's
 FLAGSHIP_NETLIST_SAMPLES = 256
 TWIN_NETLIST_SAMPLES = 16
+#: ``project_digest`` of the HLS projects the JAX package's ``convert`` writes
+#: at its defaults (latency cutoff 5; ``tools/firmware_digests.py``): the
+#: flagship saved as ``.json`` in the ``vitis`` (``--flavor hls``), ``hlslib``
+#: and ``oneapi`` flavours, and the config-5 twin saved with ``torch.save``
+#: and converted through the device search (``--solver-backend jax``, with
+#: ``convert``'s ``hard_dc=2``) with ``--inputs-kif 1 3 2 -n 0``
+CLI_DIGESTS = {'hls': 'fee82d4f60a9f8fe82712cb261651fb97734b0902bf0f2d8de5d5ac569a2c4a4',
+               'hlslib': '70fa3846e60f7eac796f3a8255afe398c811d84c9f4faaebef4476a85ea10940',
+               'oneapi': '9a812cc074afe934a33c6ecea4d714ec666ce59d3bda603bdd2d6f703ee127e2',
+               'twin_hls': 'ec65b077ebbd40f4cf1667c7d6d35e11cda1ece9646b2d1e9c5f57385039c67c'}  # fmt: skip
+#: sha256 of the standard output of the JAX package's ``verify corrupted.json
+#: --json`` on ``corrupted_mul_program()`` (``tools/firmware_digests.py``)
+VERIFY_DIGEST = 'd6bcd114a047d274bd846f28695038328540e3ef59ef9d814d4cddef558589bf'
+#: samples ``convert --validate-rtl`` runs through K1 and the g++ emulator:
+#: the flagship's, the twin's (cut from 2^20 to bound the run's time)
+CLI_FLAGSHIP_SAMPLES = 1 << 20
+CLI_TWIN_SAMPLES = 1 << 18
+#: ``verify --conformance --samples`` on the twin's project, ``verify --fuzz``
+CLI_CONFORMANCE_SAMPLES = 4096
+CLI_FUZZ = 20
 
 
 def project_digest(root) -> str:
@@ -1923,6 +1964,287 @@ def run_firmware(torch, ts, fused_cse, comb, card: str) -> dict:
     return {'flagship': flagship, 'twin': twin}
 
 
+# ---------------------------------------------------------------------------
+# the command line: convert, verify and lint-opcodes as a user runs them
+# ---------------------------------------------------------------------------
+
+
+class CliRun:
+    """``python -m da4ml_tpu_torch <args>`` started in a child process (this
+    checkout on its path), its output in files under ``tmp``. A child still
+    running when this process exits is killed."""
+
+    started: list['CliRun'] = []
+
+    def __init__(self, tmp, label: str, args: list[str], cwd=None):
+        import atexit
+
+        if not CliRun.started:
+            atexit.register(CliRun.stop_all)
+        root = Path(__file__).resolve().parent
+        env = dict(os.environ)
+        env['PYTHONPATH'] = os.pathsep.join(p for p in (str(root), env.get('PYTHONPATH', '')) if p)
+        self.label, self.args = label, args
+        self.out, self.err = Path(tmp) / f'{label}.out', Path(tmp) / f'{label}.err'
+        self.t0 = time.perf_counter()
+        with open(self.out, 'w') as out, open(self.err, 'w') as err:
+            self.proc = subprocess.Popen([sys.executable, '-m', 'da4ml_tpu_torch', *args], cwd=cwd or root, env=env,
+                                         stdout=out, stderr=err)  # fmt: skip
+        CliRun.started.append(self)
+        # a watcher notes when the child exits, whenever it is waited for
+        self.watcher = threading.Thread(target=self._watch, daemon=True)
+        self.watcher.start()
+
+    @staticmethod
+    def stop_all() -> None:
+        for run in CliRun.started:
+            if run.proc.poll() is None:
+                run.proc.kill()
+                run.proc.wait()
+
+    def _watch(self) -> None:
+        self.proc.wait()
+        self.seconds = time.perf_counter() - self.t0
+
+    def wait(self, rc: int = 0, timeout: float = 600) -> str:
+        """The child's standard output, once it has exited with ``rc``."""
+        self.watcher.join(timeout=timeout)
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+            raise AssertionError(f'cli {self.label} ({" ".join(self.args)}): no exit in {timeout} s, killed')
+        got = self.proc.returncode
+        if got != rc:
+            raise AssertionError(f'cli {self.label} ({" ".join(self.args)}): exit code {got}, not {rc}\n'
+                                 f'{self.err.read_text()[-4000:]}\n{self.out.read_text()[-2000:]}')  # fmt: skip
+        return self.out.read_text()
+
+
+def openmp_threads(lib) -> int:
+    """``omp_get_max_threads()`` as seen by a loaded emulation library (the
+    symbol resolves through the library's own libgomp)."""
+    import ctypes
+
+    fn = lib.omp_get_max_threads
+    fn.restype = ctypes.c_int
+    return int(fn())
+
+
+def cli_flagship(torch, comb, tmp, card: str) -> dict:
+    """The flagship's HLS project written, built with g++ and run on
+    ``CLI_FLAGSHIP_SAMPLES`` samples in this process (the data of
+    ``convert``'s validation): g++ build seconds, the emulator's seconds and
+    thread count (host clock), ``predict(backend='interp')`` through K1 (its
+    count reset just before, read just after) equal to the emulator, and K1's
+    milliseconds over the stages (CUDA events)."""
+    from da4ml_tpu_torch.codegen import HLSModel
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import executor_for_binary
+
+    model = HLSModel(comb, 'model', tmp / 'flagship_timed', latency_cutoff=FIRMWARE_CUTOFF).write()
+    t0 = time.perf_counter()
+    model.compile()
+    build_s = time.perf_counter() - t0
+    data = np.random.default_rng(0).uniform(-32, 32, (CLI_FLAGSHIP_SAMPLES, comb.shape[0]))
+    y_emu = model.predict(data, backend='emu')  # loads the library
+    t0 = time.perf_counter()
+    y_emu = model.predict(data, backend='emu')
+    emu_s = time.perf_counter() - t0
+    threads = openmp_threads(model._load_lib())
+    cuda_backend.reset_counts()
+    y = model.predict(data, backend='interp')
+    torch.cuda.synchronize()
+    launches = cuda_backend.launches
+    assert np.array_equal(y, y_emu), 'cli flagship: K1 differs from the g++ emulator'
+    stage_ms, bound_ms, cur = [], 0.0, data
+    for stage in model.solution.stages:
+        ex = executor_for_binary(stage.to_binary())
+        x = ex.int_inputs(cur)
+        stage_ms.append(cuda_ms(lambda: ex.fn_int(x), reps=10))
+        bound_ms += k1_bound_ms(ex, len(data))[0]
+        cur = ex(cur)
+    assert np.array_equal(cur, y)
+    print(f"[{card}] cli flagship (HLS, {len(model.solution.stages)} stages): g++ build {build_s:.3f} s (-O2), emulator "
+          f"{emu_s:.4f} s on {CLI_FLAGSHIP_SAMPLES} samples with {threads} OpenMP threads (host clock, {cpu_model()}); "
+          f"{launches} K1 launches, K1 {sum(stage_ms):.4f} ms over the stages ({', '.join(f'{ms:.4f}' for ms in stage_ms)}), "
+          f"bound {bound_ms:.4f} ms; K1 equal to the emulator", flush=True)  # fmt: skip
+    return {'k1_launches': launches, 'build_s': build_s, 'emu_s': emu_s, 'threads': threads, 'k1_ms': sum(stage_ms)}
+
+
+class CliTwinChain:
+    """The config-5 twin's two command-line steps, started right after the
+    builds in a thread that waits on them (its g++ build is the longest step
+    of the run, so it goes beside the other phases): ``convert twin.pt``
+    through the device search (K2) to an HLS project, then ``convert
+    twin/model/pipeline.json --validate-rtl`` on ``CLI_TWIN_SAMPLES``
+    samples (K1 against the g++ emulator)."""
+
+    def __init__(self, torch, tmp):
+        from da4ml_tpu_torch.models import config5_twin
+
+        self.tmp, self.error = tmp, None
+        torch.save(config5_twin(), tmp / 'twin.pt')
+        self.converted = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+        self.thread.start()
+
+    def _run(self) -> None:
+        try:
+            self.convert = CliRun(self.tmp, 'twin', ['convert', 'twin.pt', 'twin', '--flavor', 'hls', '--solver-backend',
+                                                     'torch', '--inputs-kif', '1', '3', '2', '-n', '0'], cwd=self.tmp)
+            self.convert.wait()
+            self.converted.set()
+            self.validate = CliRun(self.tmp, 'twin_validate', ['convert', 'twin/model/pipeline.json', 'twin_v', '--flavor',
+                                   'hls', '-n', str(CLI_TWIN_SAMPLES), '--validate-rtl'], cwd=self.tmp)
+            self.validate_out = self.validate.wait(timeout=1100)
+        except BaseException as e:  # re-raised on the main thread
+            self.error = e
+        finally:
+            self.converted.set()
+
+    def wait_converted(self) -> None:
+        self.converted.wait()
+        if self.error is not None:
+            raise self.error
+
+    def wait(self) -> str:
+        self.thread.join()
+        if self.error is not None:
+            raise self.error
+        return self.validate_out
+
+
+def cli_twin(torch, ts, fused_cse, tmp, card: str) -> dict:
+    """The config-5 twin through the same ``convert`` the command line runs,
+    in this process: the device search (K2's count reset just before, read
+    just after; every rung call recorded, each held to K2's plain version;
+    no host lane, no ``init_cache`` call), the project equal to the JAX
+    package's (``CLI_DIGESTS['twin_hls']``); ``predict(backend='interp')``
+    on ``convert``'s ``CLI_TWIN_SAMPLES`` validation samples through K1 (its
+    count reset just before, read just after). Returns the data and K1's
+    output, which ``run_cli`` holds to the command line's emulator."""
+    from da4ml_tpu_torch._cli.convert import convert
+    from da4ml_tpu_torch.models import CONFIG5_INPUTS_KIF
+    from da4ml_tpu_torch.runtime import cuda_backend
+
+    laps = Laps()
+    pmax0 = ts.search_stats['pmax_host_fallbacks']
+    with RungRecorder(ts, fused_cse) as rungs:
+        fused_cse.reset_counts()
+        t0 = time.perf_counter()
+        model = convert(tmp / 'twin.pt', tmp / 'twin_timed', n_test_sample=0, flavor='hls', solver_backend='torch',
+                        inputs_kif=CONFIG5_INPUTS_KIF, verbose=0)  # fmt: skip
+        torch.cuda.synchronize()
+        convert_s = time.perf_counter() - t0
+        k2_launches = fused_cse.launches
+    assert k2_launches == len(rungs.calls) > 0, 'cli twin: K2 must launch once per rung call'
+    assert rungs.init_cache_calls == 0 and ts.search_stats['pmax_host_fallbacks'] == pmax0
+    digest = project_digest(tmp / 'twin_timed')
+    assert digest == CLI_DIGESTS['twin_hls'], f"cli twin: the HLS project differs from the JAX package's ({digest})"
+    laps.lap("convert (trace 'torch', write)")
+    checked = [check_rung(torch, ts, fused_cse, inp, spec, f'cli twin {k}', timed=False)
+               for k, (inp, spec) in enumerate(rungs.calls)]  # fmt: skip
+    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs)
+    laps.lap('rung checks, K2 timed')
+    pipe = model.solution
+    data = np.random.default_rng(0).uniform(-32, 32, (CLI_TWIN_SAMPLES, pipe.shape[0]))
+    cuda_backend.reset_counts()
+    y = model.predict(data, backend='interp')
+    torch.cuda.synchronize()
+    launches = cuda_backend.launches
+    assert launches >= len(pipe.stages) and y.shape == (CLI_TWIN_SAMPLES, pipe.shape[1]) and np.isfinite(y).all()
+    laps.lap('K1')
+    n_ops = sum(len(s.ops) for s in pipe.stages)
+    print(f"[{card}] cli twin (config-5 nn.Module through convert, {len(pipe.stages)} stages, {n_ops} ops): convert "
+          f"{convert_s:.3f} s with the device search ({len(rungs.calls)} rung calls, K2 launched {k2_launches} times, "
+          f"{k2_ms:.4f} ms on the card, bound {rung_bound_ms(checked):.6f} ms, each rung call equal to its plain "
+          f"version); HLS project equal to the JAX package's; {launches} K1 launches on {CLI_TWIN_SAMPLES} samples",
+          flush=True)  # fmt: skip
+    print(f'cli twin wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
+    return {'k1_launches': launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked),
+            'k2_ms': k2_ms, 'data': data, 'y': y}  # fmt: skip
+
+
+def run_cli(torch, ts, fused_cse, comb, card: str, tmp, chain: CliTwinChain) -> dict:
+    """Phase 15: the command line as a user runs it
+    (``python -m da4ml_tpu_torch``, each step a child process, its exit code
+    checked): the flagship saved as ``.json`` converted to HLS projects in
+    each flavour (``CLI_DIGESTS``) and with ``--validate-rtl`` on
+    ``CLI_FLAGSHIP_SAMPLES`` samples (K1 against the g++ emulator); the
+    config-5 twin's steps (``CliTwinChain``, started after the builds): its
+    project equal to the JAX package's (``CLI_DIGESTS['twin_hls']``), its
+    validation passed, and the emulator it built equal to K1 in this process
+    too; ``verify --conformance`` of the twin's project and ``verify --fuzz``
+    (modes numpy, cpp and torch: K1) reporting ok; ``verify --json`` of
+    ``corrupted_mul_program()`` exiting 1 with the reference's output
+    (``VERIFY_DIGEST``); ``lint-opcodes`` exiting 0. In this process, beside
+    the children where they would not share a timed span: ``cli_flagship``
+    and ``cli_twin``, which count this phase's K1 and K2 launches. Prints
+    the phase's wall time by step."""
+    from da4ml_tpu_torch.codegen import HLSModel
+    from da4ml_tpu_torch.ir import Pipeline
+
+    laps = Laps()
+    comb.save(tmp / 'flagship.json')
+    corrupted_mul_program().save(tmp / 'corrupted.json')
+    runs = {f: CliRun(tmp, f'flagship_{f}', ['convert', 'flagship.json', f, '--flavor', f, '-n', '0'], cwd=tmp)
+            for f in ('hls', 'hlslib', 'oneapi')}  # fmt: skip
+    runs['corrupted'] = CliRun(tmp, 'corrupted', ['verify', 'corrupted.json', '--json'], cwd=tmp)
+    runs['lint'] = CliRun(tmp, 'lint', ['lint-opcodes'])
+    runs['fuzz'] = CliRun(tmp, 'fuzz', ['verify', '--fuzz', str(CLI_FUZZ), '--json'], cwd=tmp)
+    for f in ('hls', 'hlslib', 'oneapi'):
+        runs[f].wait()
+        digest = project_digest(tmp / f)
+        assert digest == CLI_DIGESTS[f], f"cli: the flagship's {f} project differs from the JAX package's ({digest})"
+    out = runs['corrupted'].wait(rc=1)
+    assert hashlib.sha256(out.encode()).hexdigest() == VERIFY_DIGEST, f'cli: verify of the corrupted program differs:\n{out}'
+    assert 'Q210' in out
+    assert runs['lint'].wait().startswith('lint-opcodes: ok')
+    fuzz = json.loads(runs['fuzz'].wait())
+    assert fuzz['ok'] and fuzz['conformance']['modes'] == ['numpy', 'cpp', 'torch'], fuzz['conformance']['diagnostics']
+    assert fuzz['conformance']['n_programs'] == CLI_FUZZ and fuzz['transfer_soundness']['ok']
+    chain.wait_converted()
+    digest = project_digest(tmp / 'twin')
+    assert digest == CLI_DIGESTS['twin_hls'], f"cli: the twin's HLS project differs from the JAX package's ({digest})"
+    laps.lap('flagship projects, verify of the corrupted program, lint-opcodes, verify --fuzz (children)')
+    flagship = cli_flagship(torch, comb, tmp, card)
+    laps.lap('flagship in process')
+    checks = {
+        'flagship_validate': CliRun(tmp, 'flagship_validate', ['convert', 'flagship.json', 'flagship_v', '--flavor', 'hls',
+                                    '-n', str(CLI_FLAGSHIP_SAMPLES), '--validate-rtl'], cwd=tmp),
+        'conformance': CliRun(tmp, 'conformance', ['verify', 'twin', '--conformance', '--json', '--samples',
+                              str(CLI_CONFORMANCE_SAMPLES)], cwd=tmp),
+    }  # fmt: skip
+    twin = cli_twin(torch, ts, fused_cse, tmp, card)
+    laps.lap('twin in process (beside the children)')
+    out = checks['flagship_validate'].wait()
+    assert f'FUNC validation passed: [0/{CLI_FLAGSHIP_SAMPLES * comb.shape[1]}] mismatches.' in out, out
+    flagship['cli_build_s'] = float(re.search(r'emulator built in ([0-9.]+) s', out).group(1))
+    report = json.loads(checks['conformance'].wait())
+    assert report['ok'] and report['fused']['ok'], (report['diagnostics'], report['fused']['diagnostics'])
+    laps.lap('flagship validation and conformance (children, after)')
+    out = chain.wait()
+    laps.lap("wait for the twin's validation (child)")
+    assert f'FUNC validation passed: [0/{CLI_TWIN_SAMPLES * twin["y"].shape[1]}] mismatches.' in out, out
+    twin_build_s = float(re.search(r'emulator built in ([0-9.]+) s', out).group(1))
+    # the emulator the command line built, loaded here: equal to K1's output
+    built = HLSModel(Pipeline.load(tmp / 'twin' / 'model' / 'pipeline.json'), 'model', tmp / 'twin_v')
+    assert np.array_equal(built.predict(twin['data'], backend='emu'), twin['y']), 'cli twin: K1 differs from the emulator'
+    laps.lap("twin's emulator against K1")
+    children = (*runs.values(), chain.convert, *checks.values(), chain.validate)
+    seconds = ', '.join(f'{r.label} {r.seconds:.1f} s' for r in children)
+    print(f"[{card}] cli: every command exited as it should: the flagship's HLS projects equal the JAX package's; K1 "
+          f"equal to the g++ emulator on {CLI_FLAGSHIP_SAMPLES} flagship and {CLI_TWIN_SAMPLES} twin samples; verify "
+          f"--conformance ({CLI_CONFORMANCE_SAMPLES} samples, modes numpy, cpp, torch) and --fuzz {CLI_FUZZ} ok; the "
+          f"corrupted program's diagnostics equal the reference's; lint-opcodes ok. g++ builds of the emulator (-O2, "
+          f"the command line's): flagship {flagship['cli_build_s']:.3f} s, twin {twin_build_s:.3f} s "
+          f"({sum(len(s.ops) for s in built.solution.stages)} ops). Child wall times (host clock, {cpu_model()}): "
+          f"{seconds}", flush=True)  # fmt: skip
+    print(f'cli wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
+    twin = {k: v for k, v in twin.items() if k not in ('data', 'y')}
+    return {'flagship': flagship, 'twin': dict(twin, build_s=twin_build_s)}
+
+
 def main() -> int:
     import torch
 
@@ -1987,6 +2309,11 @@ def main() -> int:
     assert native.load_lib() is not None, f'the native library did not load: {native.load_error()}'
     assert native.has_solver() and native.has_emit()
     phases.lap('builds')
+
+    # phase 15's twin steps start now, beside the phases before it: the
+    # command line's g++ build of the twin's emulator is the run's longest step
+    cli_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_cli_')
+    chain = CliTwinChain(torch, Path(cli_tmp.name))
 
     # phase 2: the flagship through each host solver; 'cpu' spawns its worker
     # pool while the native library is loaded in this process
@@ -2170,16 +2497,23 @@ def main() -> int:
     firmware = run_firmware(torch, ts, fused_cse, comb_dev, card)
     phases.lap('firmware')
 
-    # phase 15: the port imported nothing of JAX
+    # phase 15: the command line — convert to HLS projects (K2, K1 against
+    # the g++ emulator), verify (conformance through K1), lint-opcodes
+    cli = run_cli(torch, ts, fused_cse, comb_dev, card, Path(cli_tmp.name), chain)
+    cli_tmp.cleanup()
+    phases.lap('cli')
+
+    # phase 16: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
     k1_paths = {'flagship': dais['launches'], 'config5': model['k1_launches'], 'fusion': fusion['k1_launches'],
                 'wide_conv': wide_conv['k1_launches'],
                 **{f'fusion_{mode}': n for mode, n in fusion['k1_modes'].items()},
                 **{f'pipeline_model_{mode}': n for mode, n in pipeline_launches.items()},
-                'firmware_flagship': firmware['flagship']['k1_launches'], 'firmware_twin': firmware['twin']['k1_launches']}  # fmt: skip
+                'firmware_flagship': firmware['flagship']['k1_launches'], 'firmware_twin': firmware['twin']['k1_launches'],
+                'cli_flagship': cli['flagship']['k1_launches'], 'cli_twin': cli['twin']['k1_launches']}  # fmt: skip
     k2_paths = {'flagship': k2_launches, 'config5': model['k2_launches'], 'fusion': fusion['k2_launches'],
-                'firmware_twin': firmware['twin']['k2_launches']}  # fmt: skip
+                'firmware_twin': firmware['twin']['k2_launches'], 'cli_twin': cli['twin']['k2_launches']}  # fmt: skip
     k1_err = max(dais['max_abs_err'], firmware['flagship']['k1_err'], firmware['twin']['k1_err'])
     kernels_line = [
         {**dais, 'max_abs_err': k1_err, 'launches': sum(k1_paths.values()), 'launches_by_path': k1_paths},
@@ -2191,7 +2525,7 @@ def main() -> int:
             'launches': sum(k2_paths.values()),
             'launches_by_path': k2_paths,
             'max_abs_err': max(max(r['max_abs_err'] for r in rows), model['k2_err'], fusion['k2_err'],
-                               firmware['twin']['k2_err']),
+                               firmware['twin']['k2_err'], cli['twin']['k2_err']),
             'ms': k2_ms,
             'plain_ms': k2_plain,
             'bound_ms': k2_bound,

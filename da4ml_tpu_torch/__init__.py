@@ -2,7 +2,7 @@
 
 A second package beside ``da4ml_tpu`` with the same layout (``ir/``,
 ``ops/``, ``cmvm/``, ``trace/``, ``runtime/``, ``analysis/``, ``codegen/``,
-``converter/``). It imports torch and numpy,
+``converter/``, ``_cli/``). It imports torch and numpy,
 never jax and nothing of ``da4ml_tpu``; the modules it needs are its own
 copies. Entry points run on the CUDA device unless the caller passes
 ``device='cpu'``.
@@ -13,8 +13,10 @@ program → execution by the hand-written CUDA kernel ``csrc/dais_exec.cu``
 (``runtime.cuda_backend``). See ``entry.py``. ``native/`` builds the C++ host
 library (solver, interpreter, the search's emission) with g++ at first use.
 The firmware path: ``converter.trace_model`` turns an ``nn.Module`` into the
-trace, and ``codegen.VerilogModel``/``VHDLModel`` write the HDL project once
-the verifier (``analysis``) passes the program.
+trace, and ``codegen.VerilogModel``/``VHDLModel``/``HLSModel`` write the
+project once the verifier (``analysis``) passes the program. The command
+line, ``python -m da4ml_tpu_torch`` (``convert``, ``report``, ``verify``,
+``lint-opcodes``), drives both paths.
 """
 
 __version__ = '0.1.0'

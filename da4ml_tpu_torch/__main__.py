@@ -1,0 +1,5 @@
+import sys
+
+from ._cli import main
+
+sys.exit(main())

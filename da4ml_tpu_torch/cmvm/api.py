@@ -19,6 +19,7 @@ Counterpart of ``da4ml_tpu/cmvm/api.py`` (``_solve_dispatch_impl``):
 from __future__ import annotations
 
 import os
+import warnings
 from concurrent.futures import ProcessPoolExecutor
 from math import ceil, inf, log2
 
@@ -172,6 +173,28 @@ def solve(
     is the native solver's thread count. ``'auto'`` is ``'cpp'`` when the
     native library builds, else ``'cpu'``.
     """
+    return _post_solve_verify(
+        _solve_dispatch(
+            kernel, method0, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
+            search_all_decompose_dc, backend, n_workers, method0_candidates, n_restarts, quality, device,
+        )
+    )  # fmt: skip
+
+
+def _post_solve_verify(result: Pipeline) -> Pipeline:
+    """Opt-in ``DA4ML_VERIFY=1`` hook: verify every program ``solve`` emits."""
+    from ..analysis import post_solve_verify_enabled, verify_or_raise
+
+    if post_solve_verify_enabled():
+        verify_or_raise(result, context='post-solve verify (DA4ML_VERIFY=1)')
+    return result
+
+
+def _solve_dispatch(
+    kernel, method0, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
+    search_all_decompose_dc, backend, n_workers, method0_candidates, n_restarts, quality, device,
+) -> Pipeline:  # fmt: skip
+    """``solve`` on the chosen backend, before the post-solve hook."""
     kernel = np.asarray(kernel, dtype=np.float64)
     if kernel.ndim != 2 or kernel.shape[0] == 0 or kernel.shape[1] == 0:
         raise ValueError(f'kernel must be a non-empty 2D matrix, got shape {kernel.shape}')
@@ -205,10 +228,13 @@ def solve(
         )
     if quality not in (None, 'fast'):
         raise NotImplementedError(f'quality={quality!r}: the beam search is not ported (only None / "fast")')
+    if n_restarts and int(n_restarts) > 1:  # the restart axis is a device-lane feature, as in the reference
+        warnings.warn(f'n_restarts={n_restarts} requires the torch backend; restart lanes are not run on backend '
+                      f'{backend!r}', stacklevel=3)  # fmt: skip
     if method0_candidates:
         sols = [
-            solve(kernel, mc, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
-                  search_all_decompose_dc, backend, n_workers)
+            _solve_dispatch(kernel, mc, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
+                            search_all_decompose_dc, backend, n_workers, None, 1, quality, device)
             for mc in dict.fromkeys(method0_candidates)
         ]  # fmt: skip
         return min(sols, key=lambda s: s.cost)

@@ -1,9 +1,9 @@
-"""Code generation: RTL (Verilog/VHDL) projects.
+"""Code generation: RTL (Verilog/VHDL) and HLS C++ projects.
 
-Counterpart of ``da4ml_tpu/codegen/``; its HLS flavour (``codegen/hls/``)
-is not ported yet.
+Counterpart of ``da4ml_tpu/codegen/``.
 """
 
+from .hls.hls_model import HLSModel
 from .rtl.rtl_model import RTLModel, VerilogModel, VHDLModel
 
-__all__ = ['RTLModel', 'VerilogModel', 'VHDLModel']
+__all__ = ['HLSModel', 'RTLModel', 'VerilogModel', 'VHDLModel']

@@ -17,12 +17,18 @@ Each :class:`OpSpec` row describes one opcode family:
 - **vectorization class**: the group id the level lowering
   (``runtime.torch_backend``) packs ops by;
 - **lowering**: the name of the family's case in the CUDA kernel's switch
-  (``runtime.cuda_backend.LOWERINGS``, audited both ways at its import).
+  (``runtime.cuda_backend.LOWERINGS``, audited both ways at its import);
+- **soundness sampling**: ``sample`` builds a randomized honest one-op
+  program for the transfer-soundness checker (``analysis.soundness``),
+  which proves the abstract output interval contains every concrete replay
+  result;
+- **mutation catalog**: the corruptions ``analysis.mutation`` lists for the
+  verifier self-test, one family per row.
 
 Counterpart of ``da4ml_tpu/ir/optable.py``; its ``pallas_lower`` column is
-``lower`` here, keyed by the same eleven names. The reference's soundness
-samplers and mutation catalog are not carried: the port runs the verifier's
-default passes, not its self-tests.
+``lower`` here, keyed by the same eleven names. ``da4ml-tpu-torch
+lint-opcodes`` fails on opcode dispatch sites outside the allowlisted
+consumers of this table.
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from typing import Callable, NamedTuple
 import numpy as np
 
 from ..ops.numeric import apply_binary_bit_op, apply_quantize, apply_relu, apply_unary_bit_op
+from .lut import LookupTable
 from .types import Op, QInterval, minimal_kif, qint_add
 
 #: largest plausible power-of-two shift in an op payload (DAIS values are
@@ -452,6 +459,197 @@ def _shift_lo(op: Op) -> int:
 
 
 # ---------------------------------------------------------------------------
+# mutation catalog helpers (analysis/mutation.py)
+# ---------------------------------------------------------------------------
+
+
+def _find_op(comb, opcodes: tuple[int, ...]) -> int:
+    for i, op in enumerate(comb.ops):
+        if op.opcode in opcodes:
+            return i
+    raise ValueError(f'program has no op with opcode in {opcodes}; cannot apply corruption')
+
+
+def mutate_op(comb, opcodes: tuple[int, ...], **fields):
+    i = _find_op(comb, opcodes)
+    ops = list(comb.ops)
+    ops[i] = ops[i]._replace(**fields)
+    return comb._replace(ops=ops)
+
+
+def mutate_qint(comb, opcodes: tuple[int, ...], fn: Callable[[QInterval], QInterval]):
+    i = _find_op(comb, opcodes)
+    ops = list(comb.ops)
+    ops[i] = ops[i]._replace(qint=fn(ops[i].qint))
+    return comb._replace(ops=ops)
+
+
+def _self_reference(comb, opcodes: tuple[int, ...], field: str):
+    i = _find_op(comb, opcodes)
+    ops = list(comb.ops)
+    ops[i] = ops[i]._replace(**{field: i})
+    return comb._replace(ops=ops)
+
+
+def _corrupt_mux_cond(comb):
+    i = _find_op(comb, (6, -6))
+    ops = list(comb.ops)
+    data = int(ops[i].data)
+    shift = data >> 32  # keep the shift word, repoint the condition at self
+    ops[i] = ops[i]._replace(data=(shift << 32) | i)
+    return comb._replace(ops=ops)
+
+
+def _corrupt_bitbin_subop(comb):
+    i = _find_op(comb, (10,))
+    ops = list(comb.ops)
+    data = int(ops[i].data)
+    ops[i] = ops[i]._replace(data=(9 << 56) | (data & ((1 << 56) - 1)))
+    return comb._replace(ops=ops)
+
+
+class MutationSpec(NamedTuple):
+    """One catalogued per-opcode corruption: fault-site suffix, the verifier
+    rule that must catch it, and the CombLogic -> CombLogic damage."""
+
+    name: str
+    expect_rule: str
+    apply: Callable
+
+
+# ---------------------------------------------------------------------------
+# transfer-soundness samplers (analysis/soundness.py)
+#
+# Each builds an *honest* randomized one-op program: operand slots are copy
+# ops carrying randomized QIntervals, the op under test is last, and its
+# annotation is what a correct producer would write. The soundness checker
+# replays concrete grid samples through ``replay`` and asserts each result
+# lies inside the ``transfer``-computed abstract interval.
+# ---------------------------------------------------------------------------
+
+
+class SoundCase(NamedTuple):
+    ops: list
+    op_index: int
+    tables: tuple | None
+
+
+def _rand_qint(rng, f_max: int = 4, mag: int = 5, lo_min: int | None = None) -> QInterval:
+    f = int(rng.integers(0, f_max))
+    step = 2.0**-f
+    span = 1 << mag
+    a = int(rng.integers(0 if lo_min == 0 else -span, span))
+    b = int(rng.integers(a + 1, a + span + 1))
+    return QInterval(a * step, b * step, step)
+
+
+def _copy_op(lane: int, qi: QInterval) -> Op:
+    return Op(lane, -1, -1, 0, qi, 0.0, 0.0)
+
+
+def _container_qint(rng, i_max: int = 5) -> QInterval:
+    # full representable range of a random signed (i, f) container
+    i = int(rng.integers(1, i_max))
+    f = int(rng.integers(0, 4))
+    step = 2.0**-f
+    return QInterval(-(2.0**i), 2.0**i - step, step)
+
+
+def _sample_copy(rng) -> SoundCase:
+    return SoundCase([_copy_op(0, _rand_qint(rng))], 0, None)
+
+
+def _sample_add(rng) -> SoundCase:
+    q0, q1 = _rand_qint(rng), _rand_qint(rng)
+    shift = int(rng.integers(-2, 3))
+    opc = int(rng.integers(0, 2))
+    ann = qint_add(q0, q1, shift, False, opc == 1)
+    return SoundCase([_copy_op(0, q0), _copy_op(1, q1), Op(0, 1, opc, shift, ann, 0.0, 1.0)], 2, None)
+
+
+def _sample_relu(rng) -> SoundCase:
+    q0 = _rand_qint(rng)
+    i = int(rng.integers(1, 5))
+    f = int(rng.integers(0, 4))
+    ann = QInterval(0.0, 2.0**i - 2.0**-f, 2.0**-f)
+    opc = 2 if rng.integers(0, 2) else -2
+    return SoundCase([_copy_op(0, q0), Op(0, -1, opc, 0, ann, 0.0, 1.0)], 1, None)
+
+
+def _sample_quantize(rng) -> SoundCase:
+    q0 = _rand_qint(rng)
+    opc = 3 if rng.integers(0, 2) else -3
+    return SoundCase([_copy_op(0, q0), Op(0, -1, opc, 0, _container_qint(rng), 0.0, 1.0)], 1, None)
+
+
+def _sample_const_add(rng) -> SoundCase:
+    q0 = _rand_qint(rng)
+    c = int(rng.integers(-31, 32))
+    ann = QInterval(q0.min + c * q0.step, q0.max + c * q0.step, q0.step)
+    return SoundCase([_copy_op(0, q0), Op(0, -1, 4, c, ann, 0.0, 1.0)], 1, None)
+
+
+def _sample_const(rng) -> SoundCase:
+    f = int(rng.integers(0, 4))
+    c = int(rng.integers(-100, 101))
+    step = 2.0**-f
+    return SoundCase([Op(-1, -1, 5, c, QInterval(c * step, c * step, step), 0.0, 0.0)], 0, None)
+
+
+def _sample_mux(rng) -> SoundCase:
+    qc = _rand_qint(rng, lo_min=0 if rng.integers(0, 2) else None)
+    q0, q1 = _rand_qint(rng), _rand_qint(rng)
+    shift = int(rng.integers(-1, 3))
+    opc = 6 if rng.integers(0, 2) else -6
+    s = 2.0**shift
+    b1 = QInterval(q1.min * s, q1.max * s, q1.step * s)
+    if opc < 0:
+        b1 = QInterval(-b1.max, -b1.min, b1.step)
+    hull = QInterval(min(q0.min, b1.min), max(q0.max, b1.max), min(q0.step, b1.step))
+    data = ((shift & 0xFFFFFFFF) << 32) | 0  # condition at slot 0
+    return SoundCase([_copy_op(0, qc), _copy_op(1, q0), _copy_op(2, q1), Op(1, 2, opc, data, hull, 0.0, 1.0)], 3, None)
+
+
+def _sample_mul(rng) -> SoundCase:
+    q0 = _rand_qint(rng, mag=4)
+    if rng.integers(0, 3) == 0:  # squaring: both operands are the same slot
+        ends = [q0.min * q0.min, q0.max * q0.max] + ([0.0] if q0.min < 0 < q0.max else [])
+        ann = QInterval(min(ends), max(ends), q0.step * q0.step)
+        return SoundCase([_copy_op(0, q0), Op(0, 0, 7, 0, ann, 0.0, 1.0)], 1, None)
+    q1 = _rand_qint(rng, mag=4)
+    ends = [q0.min * q1.min, q0.min * q1.max, q0.max * q1.min, q0.max * q1.max]
+    ann = QInterval(min(ends), max(ends), q0.step * q1.step)
+    return SoundCase([_copy_op(0, q0), _copy_op(1, q1), Op(0, 1, 7, 0, ann, 0.0, 1.0)], 2, None)
+
+
+def _sample_lookup(rng) -> SoundCase:
+    q0 = _rand_qint(rng, f_max=2, mag=3)
+    size = round((q0.max - q0.min) / q0.step) + 1
+    values = rng.integers(-16, 16, size).astype(np.float64) * 0.25
+    table = LookupTable(values)
+    ft = table.float_table
+    ann = QInterval(float(ft.min()), float(ft.max()), table.spec.out_qint.step)
+    return SoundCase([_copy_op(0, q0), Op(0, -1, 8, 0, ann, 0.0, 1.0)], 1, (table,))
+
+
+def _sample_bit_unary(rng) -> SoundCase:
+    q0 = _rand_qint(rng)
+    sub = int(rng.integers(0, 3))
+    opc = 9 if rng.integers(0, 2) else -9
+    ann = _container_qint(rng) if sub == 0 else QInterval(0.0, 1.0, 1.0)
+    return SoundCase([_copy_op(0, q0), Op(0, -1, opc, sub, ann, 0.0, 1.0)], 1, None)
+
+
+def _sample_bit_binary(rng) -> SoundCase:
+    q0, q1 = _rand_qint(rng), _rand_qint(rng)
+    shift = int(rng.integers(-2, 3))
+    subop = int(rng.integers(0, 3))
+    neg0, neg1 = int(rng.integers(0, 2)), int(rng.integers(0, 2))
+    data = (subop << 56) | (neg1 << 33) | (neg0 << 32) | (shift & 0xFFFFFFFF)
+    return SoundCase([_copy_op(0, q0), _copy_op(1, q1), Op(0, 1, 10, data, _container_qint(rng, 7), 0.0, 1.0)], 2, None)
+
+
+# ---------------------------------------------------------------------------
 # the table
 # ---------------------------------------------------------------------------
 
@@ -475,43 +673,73 @@ class OpSpec(NamedTuple):
     shift_of: Callable[[Op], int] | None  # payload shift extraction (W106)
     payload_check: Callable | None  # (op, n_tables) -> [(rule, msg)]
     transfer: Callable  # QInterval transfer -> (computed, checks)
+    sample: Callable  # rng -> SoundCase (transfer-soundness fuzz)
+    mutations: tuple[MutationSpec, ...]
 
 
 OP_TABLE: tuple[OpSpec, ...] = (
     OpSpec('copy', 'copy', (-1,), 'lane', False, False, 0, 'copy', None,
            'copy from input lane `id0` (implies quantization to the slot kif)', _rp_input, _rk_copy,
-           True, None, None, _tf_quantize),
+           True, None, None, _tf_quantize,
+           _sample_copy,
+           (MutationSpec('copy.bad_lane', 'W104', lambda c: mutate_op(c, (-1,), id0=c.shape[0] + 7)),)),
     OpSpec('add', 'add/sub', (0, 1), 'slot', True, False, 1, 'addsub', 'add',
            '`buf[id0] ± buf[id1] * 2**data`', _rp_shift_add, _rk_shift_add,
-           False, _shift_data, None, _tf_add),
+           False, _shift_data, None, _tf_add,
+           _sample_add,
+           (MutationSpec('add.forward_ref', 'W103', lambda c: _self_reference(c, (0, 1), 'id1')),
+            MutationSpec('add.bad_shift', 'W106', lambda c: mutate_op(c, (0, 1), data=3000)))),
     OpSpec('relu', 'relu-quantize', (2, -2), 'slot', False, False, 2, 'relu', 'relu',
            '`quantize(relu(±buf[id0]))`', _rp_relu, _rk_relu,
-           True, None, None, _tf_quantize),
+           True, None, None, _tf_quantize,
+           _sample_relu,
+           (MutationSpec('relu.step_not_pow2', 'Q201',
+                         lambda c: mutate_qint(c, (2, -2), lambda q: QInterval(q.min, q.max, q.step * 0.75))),)),
     OpSpec('quant', 'quantize', (3, -3), 'slot', False, False, 3, 'quantize', 'quant',
            '`quantize(±buf[id0])` (arithmetic shift + modular wrap)', _rp_quantize, _rk_quantize,
-           True, None, None, _tf_quantize),
+           True, None, None, _tf_quantize,
+           _sample_quantize,
+           (MutationSpec('quantize.inverted_bounds', 'Q202',
+                         lambda c: mutate_qint(c, (3, -3), lambda q: QInterval(q.max + 1.0, q.min, q.step))),)),
     OpSpec('cadd', 'const-add', (4,), 'slot', False, False, 4, 'const_add', 'cadd',
            '`buf[id0] + data * qint.step` (constant add)', _rp_const_add, _rk_const_add,
-           False, None, None, _tf_const_add),
+           False, None, None, _tf_const_add,
+           _sample_const_add,
+           (MutationSpec('cadd.bias_drift', 'Q210',
+                         lambda c: mutate_op(c, (4,), data=int(c.ops[_find_op(c, (4,))].data) + (1 << 16))),)),
     OpSpec('const', 'const', (5,), 'none', False, False, 5, 'const', 'const',
            'constant definition: `data * qint.step`', _rp_const, _rk_const,
-           False, None, None, _tf_const),
+           False, None, None, _tf_const,
+           _sample_const,
+           (MutationSpec('const.value_drift', 'Q210',
+                         lambda c: mutate_op(c, (5,), data=int(c.ops[_find_op(c, (5,))].data) + (1 << 16) + 1)),)),
     OpSpec('mux', 'msb-mux', (6, -6), 'slot', True, True, 6, 'msb_mux', 'mux',
            'MSB mux: `msb(buf[cond]) ? buf[id0] : (±buf[id1]) << shift`', _rp_msb_mux, _rk_msb_mux,
-           True, _shift_hi, None, _tf_trusted),
+           True, _shift_hi, None, _tf_trusted,
+           _sample_mux,
+           (MutationSpec('mux.cond_forward', 'W103', _corrupt_mux_cond),)),
     OpSpec('mul', 'mul', (7,), 'slot', True, False, 7, 'mul', 'mul',
            '`buf[id0] * buf[id1]`', _rp_mul, _rk_mul,
-           False, None, None, _tf_mul),
+           False, None, None, _tf_mul,
+           _sample_mul,
+           (MutationSpec('mul.narrowed_interval', 'Q210',
+                         lambda c: mutate_qint(c, (7,), lambda q: QInterval(q.min / 64.0, q.max / 64.0, q.step))),)),
     OpSpec('lookup', 'lut', (8,), 'slot', False, False, 8, 'lookup', 'lookup',
            '`lookup_tables[data][index(buf[id0])]`', _rp_lookup, _rk_lookup,
-           True, None, _pc_lookup, _tf_lookup),
+           True, None, _pc_lookup, _tf_lookup,
+           _sample_lookup,
+           (MutationSpec('lut.bad_table', 'W110', lambda c: mutate_op(c, (8,), data=99)),)),
     OpSpec('bitu', 'unary-bitwise', (9, -9), 'slot', False, False, 9, 'bit_unary', 'bitu',
            'unary bitwise on `±buf[id0]`; `data`: 0 = NOT, 1 = OR-reduce, 2 = AND-reduce',
            _rp_bit_unary, _rk_bit_unary,
-           True, None, _pc_bit_unary, _tf_trusted),
+           True, None, _pc_bit_unary, _tf_trusted,
+           _sample_bit_unary,
+           (MutationSpec('bit_unary.bad_subop', 'W111', lambda c: mutate_op(c, (9, -9), data=7)),)),
     OpSpec('bitb', 'binary-bitwise', (10,), 'slot', True, False, 10, 'bit_binary', 'bitb',
            'binary bitwise AND/OR/XOR on aligned operands', _rp_bit_binary, _rk_bit_binary,
-           True, _shift_lo, _pc_bit_binary, _tf_trusted),
+           True, _shift_lo, _pc_bit_binary, _tf_trusted,
+           _sample_bit_binary,
+           (MutationSpec('bit_binary.bad_subop', 'W111', _corrupt_bitbin_subop),)),
 )  # fmt: skip
 
 #: opcode -> its table row
@@ -578,12 +806,16 @@ __all__ = [
     'VECTOR_CLASS',
     'SHIFT_LIMIT',
     'OpSpec',
+    'MutationSpec',
+    'SoundCase',
     'RefState',
     'spec_of',
     'family_of',
     'op_shift',
     'op_operands',
     'i32',
+    'mutate_op',
+    'mutate_qint',
     'ref_shl',
     'ref_wrap',
     'ref_quantize',

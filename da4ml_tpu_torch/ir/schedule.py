@@ -59,6 +59,10 @@ class LevelSchedule(NamedTuple):
         return int(np.diff(self.starts).max()) if self.depth else 0
 
     @property
+    def width_mean(self) -> float:
+        return float(len(self.level) / self.depth) if self.depth else 0.0
+
+    @property
     def peak_live(self) -> int:
         """Peak operand-liveness window: the most slots simultaneously live
         across any level — slot ``i`` is live from its defining level through

@@ -74,6 +74,48 @@ def test_trace_model_and_codegen_import_neither_jax_nor_reference_package():
     assert proc.stdout.strip() == 'ok'
 
 
+_CLI = """
+import json, runpy, sys, tempfile
+from pathlib import Path
+import numpy as np
+
+def cli(*argv):
+    sys.argv = ['da4ml_tpu_torch', *argv]
+    try:
+        runpy.run_module('da4ml_tpu_torch', run_name='__main__', alter_sys=True)
+    except SystemExit as e:
+        return e.code
+    raise AssertionError('the command line did not exit')
+
+with tempfile.TemporaryDirectory() as d:
+    d = Path(d)
+    (d / 'prj').mkdir()
+    (d / 'prj' / 'metadata.json').write_text(json.dumps({'name': 'model', 'cost': 1.0, 'latency': [0, 1]}))
+    assert cli('report', str(d / 'prj'), '-o', str(d / 'r.csv')) == 0
+    from da4ml_tpu_torch.trace import FixedVariableArrayInput, HWConfig, comb_trace
+    inp = FixedVariableArrayInput(4, hwconf=HWConfig(1, -1, -1), solver_options={'backend': 'cpp'})
+    x = inp.quantize(np.ones(4), np.full(4, 3), np.full(4, 2))
+    comb_trace(inp, (x @ np.array([[1., -3.], [2., 5.], [-7., 1.], [4., 4.]])).relu()).save(d / 'comb.json')
+    assert cli('convert', str(d / 'comb.json'), str(d / 'hls'), '--flavor', 'hls', '-n', '16', '--validate-rtl',
+               '-lc', '1', '-v', '0', '--device', 'cpu') == 0
+    assert cli('verify', str(d / 'hls'), '--conformance', '--samples', '16', '--device', 'cpu') == 0
+    assert cli('lint-opcodes') == 0
+bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'da4ml_tpu'))
+assert not bad, bad
+print('ok')
+"""
+
+
+def test_command_line_imports_neither_jax_nor_reference_package():
+    """``python -m da4ml_tpu_torch`` ``report``, ``convert`` (HLS, the g++
+    emulator against the executor), ``verify --conformance`` and
+    ``lint-opcodes``, run in one process: neither jax nor da4ml_tpu is
+    imported."""
+    proc = subprocess.run([sys.executable, '-c', _CLI], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == 'ok'
+
+
 def test_host_solver_imports_no_torch():
     """The host solver's spawned workers import ``da4ml_tpu_torch.cmvm``;
     the device search (and torch) load only when asked for."""
@@ -120,6 +162,14 @@ def test_scans_cover_the_firmware_modules():
     mods += ['codegen/__init__', 'codegen/rtl/rtl_model', 'converter/__init__', 'converter/plugin',
              'converter/torch_plugin', 'models']  # fmt: skip
     mods += [f'codegen/rtl/{f}/{m}' for f in ('verilog', 'vhdl') for m in ('comb', 'io_wrapper', 'pipeline', 'netlist_sim')]
+    assert {f'da4ml_tpu_torch/{m}.py' for m in mods} <= files
+
+
+def test_scans_cover_the_cli_modules():
+    files = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    mods = ['__main__', '_cli/__init__', '_cli/convert', '_cli/report', '_cli/verify', 'codegen/hls/hls_codegen',
+            'codegen/hls/hls_model', 'analysis/conformance', 'analysis/soundness', 'analysis/mutation',
+            'analysis/driftlint']  # fmt: skip
     assert {f'da4ml_tpu_torch/{m}.py' for m in mods} <= files
 
 

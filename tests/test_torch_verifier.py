@@ -149,9 +149,14 @@ def test_pipeline_corruption_same_diagnostics(solved, name):
     assert result.by_rule(corruption.expect_rule), result.format_text()
 
 
-def test_conformance_pass_is_not_silently_skipped(rich):
-    with pytest.raises(NotImplementedError, match='item 7'):
-        tanalysis.verify(rich[0], passes=('conformance',))
+def test_conformance_pass_is_not_silently_skipped(rich, monkeypatch):
+    """The opt-in pass runs every mode on ``device``; a ``'torch'`` mode that
+    cannot run (no CUDA device here) is a C401 diagnostic, never a skip."""
+    assert tanalysis.verify(rich[0], passes=('conformance',), device='cpu').ok
+    monkeypatch.setattr('torch.cuda.is_available', lambda: False)
+    result = tanalysis.verify(rich[0], passes=('conformance',))
+    c401 = result.by_rule('C401')
+    assert len(c401) == 1 and "backend 'torch' raised RuntimeError" in c401[0].message, result.format_text()
     with pytest.raises(ValueError, match='unknown analysis pass'):
         tanalysis.verify(rich[0], passes=('nope',))
 
