@@ -142,7 +142,26 @@ on them against its plain PyTorch version:
    K1's rows; a corrupted program refused by the codegen precondition and
    written with ``DA4ML_VERIFY=0``; prints trace, write, netlist and K1
    times, K1's and K2's bounds, and the wall time of each step;
-15. the command line, each step ``python -m da4ml_tpu_torch`` in a child
+15. the quality search (``quality=``, the device beam): the flagship traced
+   with ``'torch'`` on the card at ``'fast'``, ``'search'`` and ``'max'``
+   (K2's count reset just before, read just after; every rung call
+   recorded; the beam's fork step, prune and host replay timed), each
+   program equal to the JAX package's (``QUALITY_DIGESTS``), run through K1
+   on ``QUALITY_SAMPLES`` samples and held to the reference interpreter on
+   ``QUALITY_REF_SAMPLES``; ``ci/quality_corpus.npz`` at ``'search'``
+   against ``ci/quality_gate.py``'s invariants (never worse than the host
+   oracle, a strict win, never worse than ``'fast'``), its costs equal to
+   the JAX package's, the device beam equal to the host beam fork for fork,
+   and the wall multiplier over ``'fast'``; config 5 at ``'search'``: never
+   worse than ``'fast'``, equal to the JAX package's trace, K1 on 2^20
+   samples equal to its plain version; every fork rung call (full-capacity
+   records) of the flagship and the corpus, and ``CONFIG5_FORK_CHECKS`` of
+   config 5's, through K2 and its plain version, equal word for word, their
+   K2 ms printed beside the base rung calls'; ``convert --quality search
+   --solver-backend torch`` of the config-5 twin in a child process, its
+   Verilog project equal to the JAX package's, and with the default
+   ``'auto'`` backend, which exits 0 with the degrade warning;
+16. the command line, each step ``python -m da4ml_tpu_torch`` in a child
    process with its exit code checked: the flagship saved as ``.json`` and
    converted to HLS projects (``vitis``, ``hlslib``, ``oneapi``) equal to
    the JAX package's (``CLI_DIGESTS``), then converted with
@@ -160,14 +179,16 @@ on them against its plain PyTorch version:
    to K2's plain version, K1 on both programs, the emulator the command
    line built held to K1, and the g++ build, emulator and K1 times
    (``cli_flagship``, ``cli_twin``);
-16. checks that neither jax nor da4ml_tpu was imported.
+17. checks that neither jax nor da4ml_tpu was imported.
 
 Every count is set to 0 just before its path is driven and read just after;
 the kernel line gives each kernel's main-path launches summed over the
 paths and by path (K1's pipeline modes as ``fusion_<mode>`` and
 ``pipeline_model_<mode>``, the firmware phase as ``firmware_flagship`` and
 ``firmware_twin``, the command line's as ``cli_flagship`` and ``cli_twin``:
-its in-process calls, since a child's counts stay in the child).
+its in-process calls, since a child's counts stay in the child; the quality
+search's as ``quality_flagship_<q>``, ``quality_corpus`` and
+``quality_config5``).
 
 Prints the wall time of each phase, the kernel table as one JSON line,
 the card line, and last
@@ -303,6 +324,25 @@ CLI_TWIN_SAMPLES = 1 << 18
 #: ``verify --conformance --samples`` on the twin's project, ``verify --fuzz``
 CLI_CONFORMANCE_SAMPLES = 4096
 CLI_FUZZ = 20
+#: the JAX package's quality-search results on the CPU
+#: (``tools/quality_digests.py``): sha256 of the flagship's DAIS binary
+#: traced with ``{'backend': 'jax', 'quality': q}``, the costs of
+#: ``ci/quality_corpus.npz``'s kernels (sorted by name) at 'search', the
+#: config-5 model's 'search' trace, and the config-5 twin's Verilog project
+#: from ``convert --solver-backend jax --quality search``
+QUALITY_DIGESTS = {'fast': '7009d41dfc569cba46fd487e19307d42d87a363330625bdc666b6b94f848c264',
+                   'search': '4fcc046785b020f04ce01a8a95c0e6e6ca0214a2f74dc600d77e801722ba7321',
+                   'max': 'ce604ad483b516ff39cf29941e7fe30985dd7b39469e75d77efc161981e02463',
+                   'config5': '692a271dac1634f0a4db2ff5d4ca34d8f860743fc8328c90cdc0360ec723a503',
+                   'twin_cli': '4b8a2ec2b6eb6157d165744d5aed38180021a2a32376090178add2eb45a1ab57'}  # fmt: skip
+QUALITY_CORPUS_COSTS = [97.0, 146.0, 118.0, 177.0, 243.0, 192.0, 241.0, 150.0]
+#: samples of each quality-search flagship program through K1, and of them
+#: held to the reference interpreter
+QUALITY_SAMPLES = 1 << 20
+QUALITY_REF_SAMPLES = 1 << 16
+#: config 5's fork rung calls held to K2's plain version (its plain version
+#: is slow at config 5's sizes)
+CONFIG5_FORK_CHECKS = 4
 
 
 def project_digest(root) -> str:
@@ -1206,10 +1246,10 @@ def reference_equal(prog, data, y) -> None:
         raise AssertionError(f'K1 disagrees with the reference interpreter in {len(bad)} rows (first {bad[:10].tolist()})')
 
 
-def k2_rung_ms(torch, ts, fused_cse, rungs) -> float:
+def k2_rung_ms(torch, ts, fused_cse, calls) -> float:
     """Summed CUDA-event milliseconds of K2 over recorded rung calls."""
     total = 0.0
-    for inputs, spec in rungs.calls:
+    for inputs, spec in calls:
         dev_in = ts.rung_inputs(*inputs, spec, device='cuda')
         total += cuda_ms(fused_cse.run, reps=3, fresh=lambda: [fused_cse.prepare(*[t.clone() for t in dev_in], spec)])
     return total
@@ -1251,7 +1291,7 @@ def run_config5(torch, ts, fused_cse, native, card: str, ptxas) -> dict:
     assert digests['torch'] == CONFIG5_DIGESTS['jax'], f"config 5: the 'torch' trace differs from the reference's: {digests}"
     checked = [check_rung(torch, ts, fused_cse, inp, spec, f'config 5 {k}', timed=False)
                for k, (inp, spec) in enumerate(rungs.calls)]  # fmt: skip
-    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs)
+    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs.calls)
     print(f"config 5 (8x8x3 conv, max-pool, dense 32, dense 5): 'cpp' trace {cpp_s:.3f} s ({len(comb_cpp.ops)} ops, "
           f"cost {comb_cpp.cost}); 'torch' trace {dev_s:.3f} s on the card, of which solve {clock_s['solve']:.3f} s "
           f"(tracing {dev_s - clock_s['solve']:.3f} s); {len(rungs.calls)} rung calls, K2 launched {k2_launches} times, "
@@ -1284,7 +1324,8 @@ def run_config5(torch, ts, fused_cse, native, card: str, ptxas) -> dict:
           f'plain version {plain_ms:.4f} ms for {MODEL_PLAIN_ROWS}; bound {bound_ms:.4f} ms; all samples equal to the '
           f"plain version (max abs err {err}), the first {MODEL_REF_SAMPLES} to the reference interpreter on this "
           f"program and on the 'cpp' one", flush=True)  # fmt: skip
-    return {'k1_launches': launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked)}
+    return {'k1_launches': launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked),
+            'cost': float(comb_dev.cost)}  # fmt: skip
 
 
 def stages_digest(pipe) -> str:
@@ -1333,7 +1374,7 @@ def run_fusion(torch, ts, fused_cse, card: str, ptxas) -> dict:
         assert digest == FUSION_DIGESTS[name], f"fusion {name}: the stages differ from the reference's ({digest})"
     checked = [check_rung(torch, ts, fused_cse, inp, spec, f'fusion {k}', timed=False)
                for k, (inp, spec) in enumerate(rungs.calls)]  # fmt: skip
-    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs)
+    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs.calls)
     print(f"fusion workloads: traced and solved on the card in {dev_s:.3f} s, K2 launched {k2_launches} times, "
           f"{k2_ms:.4f} ms on the card, bound {rung_bound_ms(checked):.6f} ms, each rung call "
           f"({sum(r['iters'] for r in checked)} iterations) equal to its plain version on the card; no init_cache "
@@ -1840,7 +1881,7 @@ def firmware_twin(torch, ts, fused_cse, tmp, card: str) -> dict:
                for k, c in (('cpp', comb_cpp), ('jax', comb))}  # fmt: skip
     assert digests == TWIN_DIGESTS, f"twin: the traces differ from the JAX package's with the same solver: {digests}"
     laps.lap("trace 'torch'")
-    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs)
+    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs.calls)
     laps.lap('K2 timed')
 
     binary = comb.to_binary()
@@ -2144,7 +2185,7 @@ def cli_twin(torch, ts, fused_cse, tmp, card: str) -> dict:
     laps.lap("convert (trace 'torch', write)")
     checked = [check_rung(torch, ts, fused_cse, inp, spec, f'cli twin {k}', timed=False)
                for k, (inp, spec) in enumerate(rungs.calls)]  # fmt: skip
-    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs)
+    k2_ms = k2_rung_ms(torch, ts, fused_cse, rungs.calls)
     laps.lap('rung checks, K2 timed')
     pipe = model.solution
     data = np.random.default_rng(0).uniform(-32, 32, (CLI_TWIN_SAMPLES, pipe.shape[0]))
@@ -2166,7 +2207,7 @@ def cli_twin(torch, ts, fused_cse, tmp, card: str) -> dict:
 
 
 def run_cli(torch, ts, fused_cse, comb, card: str, tmp, chain: CliTwinChain) -> dict:
-    """Phase 15: the command line as a user runs it
+    """Phase 16: the command line as a user runs it
     (``python -m da4ml_tpu_torch``, each step a child process, its exit code
     checked): the flagship saved as ``.json`` converted to HLS projects in
     each flavour (``CLI_DIGESTS``) and with ``--validate-rtl`` on
@@ -2245,6 +2286,257 @@ def run_cli(torch, ts, fused_cse, comb, card: str, tmp, chain: CliTwinChain) -> 
     return {'flagship': flagship, 'twin': dict(twin, build_s=twin_build_s)}
 
 
+class BeamClock(Patched):
+    """Times the device beam's parts on the host clock, each ended by a device
+    synchronize: ``fork`` (``torch_beam.fork_step``: the fan-out's gathers are
+    outside it), ``prune`` (``torch_beam.prune``) and ``replay`` (the host's
+    ``replay_fork_prefix`` of each surviving fork); with ``keep``, records
+    each ``_expand_forks`` call's source lanes (fresh copies) and result."""
+
+    def __init__(self, torch_beam, keep: list | None = None):
+        self.seconds = dict.fromkeys(('fork', 'prune', 'replay'), 0.0)
+        makers = {(torch_beam, 'fork_step'): timed(self.seconds, 'fork', sync=True),
+                  (torch_beam, 'prune'): timed(self.seconds, 'prune', sync=True),
+                  (torch_beam, 'replay_fork_prefix'): timed(self.seconds, 'replay')}  # fmt: skip
+        if keep is not None:
+            makers[torch_beam, '_expand_forks'] = self._keep(torch_beam, keep)
+        super().__init__(makers)
+
+    @staticmethod
+    def _keep(torch_beam, keep: list):
+        def make(real):
+            def fn(lanes_sub, spec, adder_size, carry_size, device=None):
+                from da4ml_tpu_torch.cmvm.torch_search import _Lane
+
+                copies = [_Lane(ln.kernel, ln.qintervals, ln.latencies, ln.method, perm=ln.perm) for ln in lanes_sub]
+                out = real(lanes_sub, spec, adder_size, carry_size, device=device)
+                keep.append((copies, spec, adder_size, carry_size, out))
+                return out
+
+            return fn
+
+        return make
+
+    def line(self) -> str:
+        return ', '.join(f'{k} {v:.4f} s' for k, v in self.seconds.items())
+
+
+def same_forks(got, want) -> bool:
+    """Two beam expansions are the same, fork for fork: source lane, prefix
+    (records and digits), the prefix's f32 metadata, and trace meta."""
+    return len(got) == len(want) and all(
+        gi == wi and gl.prefix.key == wl.prefix.key and gl.prefix.qmeta.tobytes() == wl.prefix.qmeta.tobytes()
+        and gl.prefix.lat.tobytes() == wl.prefix.lat.tobytes() and gm == wm
+        for (gi, gl, gm), (wi, wl, wm) in zip(got, want)
+    )  # fmt: skip
+
+
+def fork_rung_checks(torch, ts, fused_cse, rungs, label: str, sample: int | None = None) -> tuple[list, list]:
+    """The fork rung calls (full-capacity records) of a recorded solve, each
+    through K2 and through its plain version on the card (``check_rung``,
+    timed); with ``sample``, only that many of them, spread over the solve.
+    Returns the checked rows and the base rung calls."""
+    forks = [(k, c) for k, c in enumerate(rungs.calls) if c[1].full_rec]
+    base = [c for c in rungs.calls if not c[1].full_rec]
+    if sample is not None and len(forks) > sample:
+        picks = sorted({round(x * (len(forks) - 1) / (sample - 1)) for x in range(sample)})
+        forks = [forks[x] for x in picks]
+    rows = [check_rung(torch, ts, fused_cse, inp, spec, f'{label} fork {k}') for k, (inp, spec) in forks]
+    return rows, base
+
+
+def quality_flagship(torch, ts, fused_cse, torch_beam, card: str) -> dict:
+    """The flagship traced with the device search at each quality (K2's
+    count reset just before, read just after; every rung call recorded; the
+    beam's parts timed): each program equal to the JAX package's
+    (``QUALITY_DIGESTS``), through K1 on ``QUALITY_SAMPLES`` samples and
+    held to the reference interpreter on ``QUALITY_REF_SAMPLES``; every fork
+    rung call through K2 and its plain version; the search counters."""
+    from da4ml_tpu_torch.entry import flagship_comb
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+
+    keys = ('fork_lanes', 'device_forks', 'device_prunes', 'strict_wins', 'ties', 'host_rescues', 'pmax_host_fallbacks')
+    data = np.random.default_rng(20261017).uniform(-8, 8, (QUALITY_SAMPLES, 16))
+    out = {'k2': {}, 'k1': {}, 'fork_rows': [], 'base_ms': 0.0, 'base_calls': 0, 'err': 0.0}
+    for q in ('fast', 'search', 'max'):
+        before = dict(ts.search_stats)
+        with RungRecorder(ts, fused_cse) as rungs, BeamClock(torch_beam) as beam:
+            fused_cse.reset_counts()
+            t0 = time.perf_counter()
+            comb = flagship_comb(backend='torch', device='cuda', quality=q)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = fused_cse.launches
+        st = {k: ts.search_stats[k] - before[k] for k in keys}
+        assert launches == len(rungs.calls) > 0 and rungs.init_cache_calls == 0, f'flagship {q}: K2 off its path'
+        assert st['pmax_host_fallbacks'] == 0, f'flagship {q}: a lane went to the host solver'
+        digest = hashlib.sha256(comb.to_binary().astype('<i4').tobytes()).hexdigest()
+        assert digest == QUALITY_DIGESTS[q], f"flagship at {q!r}: the program differs from the JAX package's ({digest})"
+        fork_rows, base = fork_rung_checks(torch, ts, fused_cse, rungs, f'flagship {q}')
+        assert (q == 'fast') == (not fork_rows), f'flagship {q}: {len(fork_rows)} fork rung calls'
+        base_ms = k2_rung_ms(torch, ts, fused_cse, base)
+        fork_ms = sum(r['ms'] for r in fork_rows)
+        prog = decode(comb.to_binary())
+        ex = DaisExecutor(prog)
+        cuda_backend.reset_counts()
+        y = ex(data)
+        torch.cuda.synchronize()
+        out['k1'][q] = cuda_backend.launches
+        assert out['k1'][q] > 0 and y.shape == (QUALITY_SAMPLES, prog.n_out) and np.isfinite(y).all()
+        reference_equal(prog, data[:QUALITY_REF_SAMPLES], y[:QUALITY_REF_SAMPLES])
+        out['k2'][q] = launches
+        out['cost_' + q] = float(comb.cost)
+        out['fork_rows'] += fork_rows
+        out['base_ms'] += base_ms
+        out['base_calls'] += len(base)
+        print(f"[{card}] quality {q!r}, flagship: cost {comb.cost}, {wall:.3f} s wall on the card (host clock, "
+              f"{cpu_model()}; the beam's timers synchronize); {len(rungs.calls)} rung calls, K2 launched {launches} "
+              f"times: {len(base)} base rung calls {base_ms:.4f} ms, {len(fork_rows)} fork rung calls {fork_ms:.4f} ms "
+              f"(bound {rung_bound_ms(fork_rows) if fork_rows else 0.0:.6f} ms; each equal to its plain version); fork "
+              f"lanes {st['fork_lanes']}, device forks {st['device_forks']}, prunes {st['device_prunes']}; fork phase "
+              f"{beam.line()}; strict wins {st['strict_wins']}, ties {st['ties']}, host rescues {st['host_rescues']}; "
+              f"program equal to the JAX package's; K1 {out['k1'][q]} launches on {QUALITY_SAMPLES} samples, the first "
+              f"{QUALITY_REF_SAMPLES} equal to the reference interpreter", flush=True)  # fmt: skip
+    assert out['cost_search'] <= out['cost_fast'] and out['cost_max'] <= out['cost_fast']
+    return out
+
+
+def quality_corpus(torch, ts, fused_cse, torch_beam, card: str) -> dict:
+    """``ci/quality_corpus.npz`` at 'search' on the card against its
+    invariants (``ci/quality_gate.py``): never worse than the host oracle,
+    at least one strict win, never worse than 'fast', costs equal to the
+    JAX package's (``QUALITY_CORPUS_COSTS``); the device beam equal to the
+    host beam on the lanes it forked, fork for fork; every fork rung call
+    through K2 and its plain version; the wall multiplier over 'fast'."""
+    from da4ml_tpu_torch.cmvm import api
+    from da4ml_tpu_torch.cmvm.search.beam import expand_beam_lanes
+
+    root = Path(__file__).resolve().parent
+    with np.load(root / 'ci' / 'quality_corpus.npz') as blob:
+        kernels = [np.asarray(blob[k], np.float64) for k in sorted(blob.files)]
+    t0 = time.perf_counter()
+    fast = [float(s.cost) for s in ts.solve_torch_many(kernels, device='cuda')]
+    torch.cuda.synchronize()
+    fast_s = time.perf_counter() - t0
+    kept: list = []
+    with RungRecorder(ts, fused_cse) as rungs, BeamClock(torch_beam, keep=kept) as beam:
+        fused_cse.reset_counts()
+        t0 = time.perf_counter()
+        sols = ts.solve_torch_many(kernels, quality='search', device='cuda')
+        torch.cuda.synchronize()
+        beam_s = time.perf_counter() - t0
+        launches = fused_cse.launches
+    assert launches == len(rungs.calls) > 0 and rungs.init_cache_calls == 0, 'corpus: K2 off its path'
+    for k, s in zip(kernels, sols):
+        assert np.array_equal(np.asarray(s.kernel, np.float64), k), 'corpus: a solution is not exact'
+    costs = [float(s.cost) for s in sols]
+    host = [float(api.solve(k, backend='auto').cost) for k in kernels]
+    wins = sum(c < h for c, h in zip(costs, host))
+    assert all(c <= h for c, h in zip(costs, host)), f'corpus: worse than the host oracle: {costs} vs {host}'
+    assert wins >= 1, f'corpus: no strict win over the host oracle: {costs} vs {host}'
+    assert all(c <= f for c, f in zip(costs, fast)), f"corpus: worse than 'fast': {costs} vs {fast}"
+    assert costs == QUALITY_CORPUS_COSTS, f"corpus: costs differ from the JAX package's: {costs}"
+    for lanes, spec, a, c, got in kept:
+        assert same_forks(got, expand_beam_lanes(lanes, spec, a, c)), 'corpus: the device beam differs from the host beam'
+    fork_rows, base = fork_rung_checks(torch, ts, fused_cse, rungs, 'corpus')
+    assert fork_rows, 'corpus: no fork rung call'
+    base_ms = k2_rung_ms(torch, ts, fused_cse, base)
+    print(f"[{card}] quality 'search', corpus ({len(kernels)} kernels): costs {costs}, host oracle {host}, 'fast' {fast}: "
+          f"{wins} strict wins, never worse than the oracle or 'fast', equal to the JAX package's; wall {beam_s:.3f} s "
+          f"against 'fast' {fast_s:.3f} s ({beam_s / fast_s:.2f}x, host clock; the beam's timers synchronize); fork "
+          f"phase {beam.line()}; device beam equal to the host beam on {sum(len(k[4]) for k in kept)} forks; K2 "
+          f"launched {launches} times: {len(base)} base rung calls {base_ms:.4f} ms, {len(fork_rows)} fork rung calls "
+          f"{sum(r['ms'] for r in fork_rows):.4f} ms (bound {rung_bound_ms(fork_rows):.6f} ms), each equal to its "
+          f"plain version", flush=True)  # fmt: skip
+    return {'k2': launches, 'fork_rows': fork_rows, 'base_ms': base_ms, 'base_calls': len(base)}
+
+
+def quality_config5(torch, ts, fused_cse, torch_beam, card: str, fast_cost: float) -> dict:
+    """The config-5 model traced at 'search' on the card: never worse than
+    'fast', equal to the JAX package's trace (``QUALITY_DIGESTS``), K1 on
+    ``MODEL_SAMPLES`` samples equal to its plain version, and
+    ``CONFIG5_FORK_CHECKS`` of its fork rung calls through K2 and its plain
+    version."""
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+
+    with RungRecorder(ts, fused_cse) as rungs, BeamClock(torch_beam) as beam:
+        fused_cse.reset_counts()
+        t0 = time.perf_counter()
+        comb = config5_model('torch', quality='search', device='cuda')
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_cse.launches
+    assert launches == len(rungs.calls) > 0 and rungs.init_cache_calls == 0, 'config 5 at search: K2 off its path'
+    assert float(comb.cost) <= fast_cost, f"config 5 at 'search': cost {comb.cost} over 'fast' {fast_cost}"
+    digest = hashlib.sha256(comb.to_binary().astype('<i4').tobytes()).hexdigest()
+    assert digest == QUALITY_DIGESTS['config5'], f"config 5 at 'search' differs from the JAX package's ({digest})"
+    fork_rows, base = fork_rung_checks(torch, ts, fused_cse, rungs, 'config 5', sample=CONFIG5_FORK_CHECKS)
+    assert len(fork_rows) >= min(CONFIG5_FORK_CHECKS, 1), 'config 5 at search: no fork rung call'
+    n_fork = sum(1 for _, s in rungs.calls if s.full_rec)
+    prog = decode(comb.to_binary())
+    data = np.random.default_rng(20261019).uniform(-8, 8, (MODEL_SAMPLES, prog.n_in))
+    ex = DaisExecutor(prog)
+    cuda_backend.reset_counts()
+    y = ex(data)
+    torch.cuda.synchronize()
+    k1 = cuda_backend.launches
+    assert k1 > 0 and y.shape == (MODEL_SAMPLES, prog.n_out) and np.isfinite(y).all()
+    err = k1_equal_plain(torch, ex, ex.int_inputs(data), MODEL_PLAIN_ROWS)
+    print(f"[{card}] quality 'search', config 5: cost {comb.cost} ('fast' {fast_cost}), {wall:.3f} s wall on the card "
+          f"(host clock; the beam's timers synchronize); fork phase {beam.line()}; {len(rungs.calls)} rung calls, K2 "
+          f"launched {launches} times, {n_fork} of them fork rung calls, {len(fork_rows)} of those held to the plain "
+          f"version ({sum(r['ms'] for r in fork_rows):.4f} ms); program equal to the JAX package's; K1 {k1} launches "
+          f"on {MODEL_SAMPLES} samples, equal to its plain version (max abs err {err})", flush=True)  # fmt: skip
+    return {'k2': launches, 'k1': k1, 'fork_rows': fork_rows, 'err': err}
+
+
+def run_quality(torch, ts, fused_cse, card: str, tmp, config5_cost: float) -> dict:
+    """Phase 15: the quality search on the card — the flagship at each
+    quality, the quality corpus at 'search', config 5 at 'search', and the
+    command line's ``convert --quality search`` of the config-5 twin in a
+    child process (its Verilog project equal to the JAX package's), and the
+    same with the default 'auto' backend, which degrades with a warning.
+    Prints the phase's wall time by step."""
+    from da4ml_tpu_torch.cmvm import torch_beam
+
+    laps = Laps()
+    common = ['--flavor', 'verilog', '--inputs-kif', '1', '3', '2', '-n', '0', '--quality', 'search']
+    children = {'torch': CliRun(tmp, 'quality_torch', ['convert', 'twin.pt', 'quality_torch', *common, '--solver-backend',
+                                                       'torch'], cwd=tmp),
+                'auto': CliRun(tmp, 'quality_auto', ['convert', 'twin.pt', 'quality_auto', *common], cwd=tmp)}  # fmt: skip
+    flag = quality_flagship(torch, ts, fused_cse, torch_beam, card)
+    laps.lap('flagship')
+    corpus = quality_corpus(torch, ts, fused_cse, torch_beam, card)
+    laps.lap('corpus')
+    model = quality_config5(torch, ts, fused_cse, torch_beam, card, config5_cost)
+    laps.lap('config 5')
+    children['torch'].wait()
+    digest = project_digest(tmp / 'quality_torch')
+    assert digest == QUALITY_DIGESTS['twin_cli'], f"quality cli: the twin's project differs from the JAX package's ({digest})"
+    children['auto'].wait()
+    warned = children['auto'].err.read_text()
+    assert 'portfolio sweep' in warned, f'quality cli: no degrade warning from the auto backend:\n{warned[-2000:]}'
+    laps.lap('command line (children, after)')
+    print(f"quality cli: convert --quality search --solver-backend torch {children['torch'].seconds:.1f} s, project "
+          f"equal to the JAX package's; with the default 'auto' backend {children['auto'].seconds:.1f} s, exit 0, "
+          f"warned: {next(ln for ln in warned.splitlines() if 'portfolio sweep' in ln).strip()[-200:]}",
+          flush=True)  # fmt: skip
+    print(f'quality wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
+    rows = flag['fork_rows'] + corpus['fork_rows'] + model['fork_rows']
+    fork_ms = sum(r['ms'] for r in flag['fork_rows'] + corpus['fork_rows'])
+    print(f"[{card}] quality: fork rung calls of the flagship and the corpus: {len(flag['fork_rows']) + len(corpus['fork_rows'])}, "
+          f"K2 {fork_ms:.4f} ms, bound {rung_bound_ms(flag['fork_rows'] + corpus['fork_rows']):.6f} ms; base rung calls "
+          f"{flag['base_calls'] + corpus['base_calls']}, K2 {flag['base_ms'] + corpus['base_ms']:.4f} ms", flush=True)  # fmt: skip
+    return {'k2_paths': {f'quality_flagship_{q}': n for q, n in flag['k2'].items()} | {'quality_corpus': corpus['k2'],
+                                                                                     'quality_config5': model['k2']},
+            'k1_paths': {f'quality_flagship_{q}': n for q, n in flag['k1'].items()} | {'quality_config5': model['k1']},
+            'k2_err': max(r['max_abs_err'] for r in rows), 'k1_err': model['err']}  # fmt: skip
+
+
 def main() -> int:
     import torch
 
@@ -2310,7 +2602,7 @@ def main() -> int:
     assert native.has_solver() and native.has_emit()
     phases.lap('builds')
 
-    # phase 15's twin steps start now, beside the phases before it: the
+    # phase 16's twin steps start now, beside the phases before it: the
     # command line's g++ build of the twin's emulator is the run's longest step
     cli_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_cli_')
     chain = CliTwinChain(torch, Path(cli_tmp.name))
@@ -2497,13 +2789,18 @@ def main() -> int:
     firmware = run_firmware(torch, ts, fused_cse, comb_dev, card)
     phases.lap('firmware')
 
-    # phase 15: the command line — convert to HLS projects (K2, K1 against
+    # phase 15: the quality search — the flagship, the quality corpus and
+    # config 5 through the device beam and K2's fork rungs, convert --quality
+    quality = run_quality(torch, ts, fused_cse, card, Path(cli_tmp.name), model['cost'])
+    phases.lap('quality search')
+
+    # phase 16: the command line — convert to HLS projects (K2, K1 against
     # the g++ emulator), verify (conformance through K1), lint-opcodes
     cli = run_cli(torch, ts, fused_cse, comb_dev, card, Path(cli_tmp.name), chain)
     cli_tmp.cleanup()
     phases.lap('cli')
 
-    # phase 16: the port imported nothing of JAX
+    # phase 17: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
     k1_paths = {'flagship': dais['launches'], 'config5': model['k1_launches'], 'fusion': fusion['k1_launches'],
@@ -2511,10 +2808,12 @@ def main() -> int:
                 **{f'fusion_{mode}': n for mode, n in fusion['k1_modes'].items()},
                 **{f'pipeline_model_{mode}': n for mode, n in pipeline_launches.items()},
                 'firmware_flagship': firmware['flagship']['k1_launches'], 'firmware_twin': firmware['twin']['k1_launches'],
-                'cli_flagship': cli['flagship']['k1_launches'], 'cli_twin': cli['twin']['k1_launches']}  # fmt: skip
+                'cli_flagship': cli['flagship']['k1_launches'], 'cli_twin': cli['twin']['k1_launches'],
+                **quality['k1_paths']}  # fmt: skip
     k2_paths = {'flagship': k2_launches, 'config5': model['k2_launches'], 'fusion': fusion['k2_launches'],
-                'firmware_twin': firmware['twin']['k2_launches'], 'cli_twin': cli['twin']['k2_launches']}  # fmt: skip
-    k1_err = max(dais['max_abs_err'], firmware['flagship']['k1_err'], firmware['twin']['k1_err'])
+                'firmware_twin': firmware['twin']['k2_launches'], 'cli_twin': cli['twin']['k2_launches'],
+                **quality['k2_paths']}  # fmt: skip
+    k1_err = max(dais['max_abs_err'], firmware['flagship']['k1_err'], firmware['twin']['k1_err'], quality['k1_err'])
     kernels_line = [
         {**dais, 'max_abs_err': k1_err, 'launches': sum(k1_paths.values()), 'launches_by_path': k1_paths},
         {
@@ -2525,7 +2824,7 @@ def main() -> int:
             'launches': sum(k2_paths.values()),
             'launches_by_path': k2_paths,
             'max_abs_err': max(max(r['max_abs_err'] for r in rows), model['k2_err'], fusion['k2_err'],
-                               firmware['twin']['k2_err'], cli['twin']['k2_err']),
+                               firmware['twin']['k2_err'], cli['twin']['k2_err'], quality['k2_err']),
             'ms': k2_ms,
             'plain_ms': k2_plain,
             'bound_ms': k2_bound,

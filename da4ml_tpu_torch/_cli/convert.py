@@ -81,11 +81,14 @@ def convert(
     solver_backend: str = 'auto',
     n_restarts: int = 1,
     method0_candidates: list[str] | None = None,
+    quality: str = 'fast',
     device: str | None = None,
 ):
     """Write the project of ``model_path`` into ``outdir``; returns the
     codegen model. ``device`` is where the DAIS executor and the device
-    search run (the card when None)."""
+    search run (the card when None). ``quality`` is the CMVM search
+    strategy: the beam search on ``'torch'``, a portfolio sweep with a
+    warning on the host backends."""
     from ..codegen import HLSModel, RTLModel, VHDLModel
 
     model_path, outdir = Path(model_path), Path(outdir)
@@ -115,6 +118,7 @@ def convert(
                 'backend': solver_backend,
                 'n_restarts': n_restarts,
                 **({'method0_candidates': method0_candidates} if method0_candidates else {}),
+                **({'quality': quality} if quality and quality != 'fast' else {}),
                 **({'device': device} if solver_backend == 'torch' else {}),
             },
             verbose > 1,
@@ -245,10 +249,6 @@ def convert(
 
 
 def convert_main(args: argparse.Namespace) -> int:
-    if args.quality != 'fast':
-        raise UsageError(
-            f'--quality {args.quality} needs the device beam search, which is not ported yet (ROADMAP Queue 1, item 6)'
-        )
     for dest, default, what, item in _UNPORTED:
         if getattr(args, dest) != default:
             raise UsageError(f'{what}, which is not ported yet (ROADMAP Queue 1, item {item})')
@@ -271,6 +271,7 @@ def convert_main(args: argparse.Namespace) -> int:
         solver_backend=args.solver_backend,
         n_restarts=args.n_restarts,
         method0_candidates=args.methods,
+        quality=args.quality,
         device=device,
     )
     return 0
@@ -324,7 +325,8 @@ def add_convert_args(parser: argparse.ArgumentParser):
         type=str,
         default='fast',
         choices=['fast', 'search', 'max'],
-        help="CMVM search strategy: only 'fast' (greedy) is ported; 'search' and 'max' exit 2 (ROADMAP Queue 1, item 6)",
+        help="CMVM search strategy: 'fast' (greedy), 'search' (focused beam + host oracle), 'max' (full beam, "
+        "every heuristic, restarts); beyond 'fast' the host backends run a portfolio sweep with a warning",
     )
     parser.add_argument('--deadline', type=float, default=None, help='Not ported yet (ROADMAP Queue 1, item 10): exits 2')
     parser.add_argument('--fallback', type=str, default=None, help='Not ported yet (ROADMAP Queue 1, item 10): exits 2')

@@ -12,6 +12,7 @@ from .api import minimal_latency, solve
 from .core import cmvm, solve_single, to_solution
 from .csd import csd_decompose, int_arr_to_csd
 from .decompose import kernel_decompose, prim_mst_dc
+from .search import QUALITY_PRESETS, SearchSpec, resolve_quality
 
 
 def __getattr__(name: str):
@@ -38,6 +39,7 @@ class solver_options_t(TypedDict):
     n_workers: NotRequired[int]
     method0_candidates: NotRequired[list[str]]
     n_restarts: NotRequired[int]
+    quality: NotRequired[object]  # a preset name, SearchSpec or its dict form
     device: NotRequired[object]
 
 
@@ -54,4 +56,7 @@ __all__ = [
     'kernel_decompose',
     'prim_mst_dc',
     'solver_options_t',
+    'SearchSpec',
+    'QUALITY_PRESETS',
+    'resolve_quality',
 ]

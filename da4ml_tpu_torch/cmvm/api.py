@@ -13,7 +13,12 @@ Counterpart of ``da4ml_tpu/cmvm/api.py`` (``_solve_dispatch_impl``):
 - ``backend='auto'`` resolves to ``'cpp'`` when the native solver builds and
   loads (``native.has_solver()``), else to ``'cpu'``, as the reference's does;
 - ``backend='torch'`` runs the device search ``torch_search.solve_torch``
-  on ``device`` (the card when None; ``'cpu'`` runs its plain torch loop).
+  on ``device`` (the card when None; ``'cpu'`` runs its plain torch loop),
+  ``quality=`` (the beam search) included.
+
+On the host backends a ``quality`` other than ``'fast'`` degrades as in the
+reference: the spec's heuristic portfolio joins the method candidates, the
+beam and restart lanes are dropped, and one warning per backend says so.
 """
 
 from __future__ import annotations
@@ -33,6 +38,17 @@ from .decompose import kernel_decompose
 from .state import create_state
 
 BACKENDS = ('cpu', 'cpp', 'auto', 'torch')
+
+#: the keys of the warnings already given (the reference's ``warn_once``)
+_warned: set[str] = set()
+
+
+def warn_once(key: str, message: str) -> None:
+    """``warnings.warn(message)`` the first time ``key`` is seen in this
+    process, and never again."""
+    if key not in _warned:
+        _warned.add(key)
+        warnings.warn(message, stacklevel=4)
 
 
 def minimal_latency(
@@ -165,7 +181,9 @@ def solve(
     ``backend='torch'`` runs the device search on ``device`` (the card when
     None); ``method0_candidates``, ``n_restarts`` and ``quality`` are its
     options (``solve_torch``). The host backends take ``method0_candidates``
-    as a sequential sweep (the cheapest solution wins) and run no restarts.
+    as a sequential sweep (the cheapest solution wins) and run no restarts;
+    a ``quality`` spec adds its portfolio to that sweep and warns once per
+    backend that its beam and restarts were dropped.
 
     ``n_workers > 1`` solves the host sweep's candidates in that many worker
     processes (spawned: the caller may hold threads, and fork is unsafe
@@ -227,7 +245,14 @@ def _solve_dispatch(
             device=device,
         )
     if quality not in (None, 'fast'):
-        raise NotImplementedError(f'quality={quality!r}: the beam search is not ported (only None / "fast")')
+        from .search.spec import resolve_quality
+
+        spec = resolve_quality(quality)
+        if not spec.is_fast:
+            warn_once(f'cmvm.quality.{backend}', f'quality beam search runs on the torch backend only; degrading to a '
+                      f'portfolio sweep on backend {backend!r} (beam/restart lanes dropped)')  # fmt: skip
+            method0_candidates = list(dict.fromkeys([*(method0_candidates or [method0]), *spec.portfolio]))
+        quality = None
     if n_restarts and int(n_restarts) > 1:  # the restart axis is a device-lane feature, as in the reference
         warnings.warn(f'n_restarts={n_restarts} requires the torch backend; restart lanes are not run on backend '
                       f'{backend!r}', stacklevel=3)  # fmt: skip

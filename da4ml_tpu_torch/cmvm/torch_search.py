@@ -38,11 +38,21 @@ Numerics: ``ceil(log2(x))`` is computed exactly from the float's exponent
 ``exp2``, which the JAX package uses, are off by an ulp at some powers of two
 (2^-13, 2^13, ...); the exact values are the host solver's.
 
+``quality=`` (``'search'``, ``'max'``, a ``SearchSpec``) widens the sweep
+with the spec's heuristic portfolio and restarts, folds the host solver in,
+and forks stage-0 lanes into decision-prefix lanes (:class:`LanePrefix`)
+with the device beam (``torch_beam``, torch ops on the solve's device); the
+prefix lanes run the rung ladder beside the base lanes, through K2 with
+full-capacity op records (``_KernelSpec.full_rec``).
+
 Left out against the reference: the ``xla`` select, the device-resident
-rung transitions and decision replay, prewarm, asynchronous emission, the
-beam (``quality`` other than ``None``/``'fast'`` raises), meshes and
-multi-process code, telemetry, and every environment knob (their reference
-defaults are the constants below).
+rung transitions and decision replay (the resident rung ladder: the
+reference's ``_transition_jit``, ``_replay_digits``, ``_fork_seed_jit`` and
+the ``park_roots``/``entry_carry`` hand-offs), prewarm, asynchronous
+emission, meshes and multi-process code, telemetry (its ``search.*``
+counters are keys of :data:`search_stats`), and every environment knob but
+the trace export's ``DA4ML_SEARCH_TRACE_DIR`` (their reference defaults are
+the constants below).
 """
 
 from __future__ import annotations
@@ -80,8 +90,14 @@ DEVICE_BUDGET = 4 << 30
 #: 'over_budget_accepts' counts matrices where no candidate met the hard_dc
 #: latency budget and the forced dc=-1 / wmc-dc terminal was accepted;
 #: 'pmax_host_fallbacks' counts lanes routed to the host solver because their
-#: slot demand exceeded PMAX
-search_stats = {'over_budget_accepts': 0, 'pmax_host_fallbacks': 0}
+#: slot demand exceeded PMAX. The rest are the reference's ``search.*``
+#: telemetry of the quality search: 'beam_width' the last spec's beam (a
+#: gauge), the others running counts — source lanes expanded, fork lanes
+#: made, frontier children culled, device forks committed and pruned, and
+#: matrices where the device result beat, tied or lost to the host solver
+search_stats = {'over_budget_accepts': 0, 'pmax_host_fallbacks': 0, 'beam_width': 0, 'lanes_expanded': 0,
+                'fork_lanes': 0, 'frontier_culled': 0, 'device_forks': 0, 'device_prunes': 0, 'strict_wins': 0,
+                'ties': 0, 'host_rescues': 0}  # fmt: skip
 
 _SP_FIN = -3.0e38  # finite stand-in for -inf in the cache merge's order
 
@@ -293,9 +309,9 @@ def _dev_substitute(E: torch.Tensor, u, sub, s, i, j, B: int) -> torch.Tensor:
 
 def _dev_commit_pair(qm, lat, u, sub, s, i, j, adder_size: int, carry_size: int):
     """Metadata of committing one pair per lane: (qmeta row [n, 3], latency
-    [n], op record [n, 4] int32). qint_add(q0, q1, shift, sub0=False,
-    sub1=sub) in f32 — for scoring only; the host re-derives op metadata in
-    f64 from the records."""
+    [n], op record [n, 4] int32, op cost [n]). qint_add(q0, q1, shift,
+    sub0=False, sub1=sub) in f32 — for scoring only; the host re-derives op
+    metadata in f64 from the records."""
     id0 = torch.minimum(i, j)
     id1 = torch.maximum(i, j)
     shift = torch.where(i < j, s, -s)
@@ -304,13 +320,13 @@ def _dev_commit_pair(qm, lat, u, sub, s, i, j, adder_size: int, carry_size: int)
     lo0, hi0, st0 = q0.unbind(-1)
     lo1, hi1, st1 = q1.unbind(-1)
     is_sub = sub == 1
-    dlat, _ = _cost_add_vec(lo0, hi0, st0, lo1, hi1, st1, sp, is_sub, adder_size, carry_size)
+    dlat, dcost = _cost_add_vec(lo0, hi0, st0, lo1, hi1, st1, sp, is_sub, adder_size, carry_size)
     nlat = torch.maximum(lat[u, id0], lat[u, id1]) + dlat
     min1 = torch.where(is_sub, -hi1, lo1) * sp
     max1 = torch.where(is_sub, -lo1, hi1) * sp
     qrow = torch.stack([lo0 + min1, hi0 + max1, torch.minimum(st0, st1 * sp)], -1)
     rec_row = torch.stack([id0, id1, sub, shift], -1).to(torch.int32)
-    return qrow, nlat, rec_row
+    return qrow, nlat, rec_row, dcost
 
 
 # --------------------------------------------------------------------------
@@ -327,11 +343,16 @@ class _KernelSpec:
     carry_size: int
     R_in: int = 0  # rows carrying state at rung entry (0 = full P); sizes the op records
     topk: int = 8  # score-cache depth per (sub, shift, row)
+    #: full-capacity op records [P, 4]: beam-fork lanes enter a rung with
+    #: heterogeneous cur0 (each prefix has its own depth), so the trimmed
+    #: capacity's cur0 >= R_in invariant does not hold
+    full_rec: bool = False
 
     @property
     def n_iters(self) -> int:
-        """Op-record capacity: a rung adds at most P - cur0 ops, cur0 >= R_in."""
-        return self.P - self.R_in if self.R_in else self.P
+        """Op-record capacity: a rung adds at most P - cur0 ops, cur0 >= R_in
+        (any cur0 >= 0 with ``full_rec``)."""
+        return self.P - self.R_in if (self.R_in and not self.full_rec) else self.P
 
 
 def _shifted_up(x: torch.Tensor, B: int) -> torch.Tensor:
@@ -446,7 +467,7 @@ def greedy_plain(E, qm, lat, tv, tc, cur, method, spec: _KernelSpec):
 
         new_row = _dev_substitute(E, u, sub, s, i, j, B)
         E[u, c] = new_row
-        qrow, nlat, rec_row = _dev_commit_pair(qm, lat, u, sub, s, i, j, spec.adder_size, spec.carry_size)
+        qrow, nlat, rec_row, _ = _dev_commit_pair(qm, lat, u, sub, s, i, j, spec.adder_size, spec.carry_size)
         qm[u, c] = qrow
         lat[u, c] = nlat
         rec[u, c - cur0[u]] = rec_row
@@ -539,6 +560,28 @@ def cse_rung(E0, qmeta0, lat0, cur0, method, spec: _KernelSpec, device=None) -> 
 
 
 @dataclass
+class LanePrefix:
+    """Decision prefix of a beam-fork lane (``torch_beam`` /
+    ``search.beam``), in *lane slot space*: inputs 0..ni-1, prefix ops
+    ni..ni+d-1 (the rung ladder renumbers op ids to its padded device
+    slots). ``E`` is the post-prefix digit tensor [ni+d, O, B]; ``rec`` the
+    committed (id0, id1, sub, shift) records [d, 4]; ``qmeta``/``lat`` the
+    f32 scoring metadata of the op rows (emission re-derives exact f64
+    metadata from the records, like any device decision)."""
+
+    rec: NDArray
+    E: NDArray
+    qmeta: NDArray
+    lat: NDArray
+    #: dedupe key, hashed once at construction
+    key: tuple = None
+
+    def __post_init__(self):
+        if self.key is None:
+            self.key = (self.rec.tobytes(), self.E.tobytes())
+
+
+@dataclass
 class _Lane:
     kernel: NDArray
     qintervals: list[QInterval]
@@ -548,6 +591,9 @@ class _Lane:
     #: sees rows in ``perm`` order, which changes greedy tie-breaks; the
     #: emitted solution is mapped back to the original input order
     perm: NDArray | None = None
+    #: optional beam decision prefix: the lane resumes the greedy search
+    #: from this state instead of the raw CSD (quality='search'/'max')
+    prefix: LanePrefix | None = None
     # filled by preparation
     csd: NDArray | None = None
     shift0: NDArray | None = None
@@ -605,20 +651,25 @@ def _bucket_lanes(n: int) -> int:
     return t if n <= t else p2
 
 
-def _resolve_rung_class(P: int, O: int, B: int, adder_size: int, carry_size: int, rows_cap: int) -> _KernelSpec:
+def _resolve_rung_class(
+    P: int, O: int, B: int, adder_size: int, carry_size: int, rows_cap: int, full_rec: bool = False
+) -> _KernelSpec:
     """The rung's class: natural P, a cache of 8 per row up to P = 256 and
-    16 above, rows trimmed to ``rows_cap`` (the reference's top4 policy)."""
+    16 above, rows trimmed to ``rows_cap`` (the reference's top4 policy);
+    ``full_rec`` for a group holding beam-fork lanes."""
     topk = 8 if P <= 256 else 16
     rows_in = min(rows_cap, P)
-    return _KernelSpec(P, O, B, adder_size, carry_size, R_in=rows_in if rows_in < P else 0, topk=topk)
+    return _KernelSpec(P, O, B, adder_size, carry_size, R_in=rows_in if rows_in < P else 0, topk=topk, full_rec=full_rec)
 
 
-def _rung_bytes_per_lane(P: int, O: int, B: int, topk: int) -> int:
+def _rung_bytes_per_lane(spec: _KernelSpec) -> int:
     """Device bytes of one lane in a rung: the shifted digit stack and its
     abs copy, the blocked stage-entry scoring, the score cache, the merge
-    transients, the digits."""
+    transients, the digits, the op records."""
+    P, O, B = spec.P, spec.O, spec.B
     blk = min(128, P)
-    return 4 * P * O * B * B + 16 * B * blk * P + 16 * B * P * topk + 96 * B * P + P * O * B + 32 * P
+    return (4 * P * O * B * B + 16 * B * blk * P + 16 * B * P * spec.topk + 96 * B * P + P * O * B + 32 * P
+            + 16 * spec.n_iters)  # fmt: skip
 
 
 def _host_state_from(ln: _Lane, rec, E_lane, n_add: int, adder_size: int, carry_size: int, shift0=None) -> DAState:
@@ -664,6 +715,8 @@ def _as_comb(sol) -> CombLogic:
 
 
 def _lane_key(ln: _Lane) -> tuple:
+    """Identity of a lane's search: forks of one lane differ only in their
+    decision prefix."""
     return (
         ln.kernel.tobytes(),
         ln.kernel.shape,
@@ -671,6 +724,7 @@ def _lane_key(ln: _Lane) -> tuple:
         tuple(ln.qintervals),
         tuple(ln.latencies),
         None if ln.perm is None else ln.perm.tobytes(),
+        None if ln.prefix is None else ln.prefix.key,
     )
 
 
@@ -748,6 +802,9 @@ def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_
     numbering and input order, and the lanes the PMAX safety net solved on
     the host."""
     n_in_max = next_pow2(max(lanes[k].csd.shape[0] for k in active))
+    # beam-fork prefixes start above n_in_max and switch the group's rung
+    # classes to full-capacity records
+    has_prefix = any(lanes[k].prefix is not None for k in active)
     n_act = len(active)
     st_cur = np.full((n_act,), n_in_max, dtype=np.int64)
     mcodes = np.array([_METHOD_CODES[lanes[k].method] for k in active], dtype=np.int32)
@@ -756,14 +813,19 @@ def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_
     hE: list[NDArray] = []
     hq: list[NDArray] = []
     hl: list[NDArray] = []
-    for k in active:
+    for a, k in enumerate(active):
         ln = lanes[k]
         ni, no, nb = ln.csd.shape
-        E = np.zeros((n_in_max, O, B), dtype=np.int8)
-        E[:ni, :no, :nb] = ln.csd
-        q = np.zeros((n_in_max, 3), dtype=np.float32)
+        d = len(ln.prefix.rec) if ln.prefix is not None else 0
+        E = np.zeros((n_in_max + d, O, B), dtype=np.int8)
+        if d:  # post-prefix digits: inputs at their slots, prefix ops at n_in_max..n_in_max+d-1
+            E[:ni, :no, :nb] = ln.prefix.E[:ni]
+            E[n_in_max : n_in_max + d, :no, :nb] = ln.prefix.E[ni:]
+        else:
+            E[:ni, :no, :nb] = ln.csd
+        q = np.zeros((n_in_max + d, 3), dtype=np.float32)
         q[:, 2] = 1.0  # benign step for unused slots
-        lb = np.zeros((n_in_max,), dtype=np.float32)
+        lb = np.zeros((n_in_max + d,), dtype=np.float32)
         for i in range(ni):
             sf = 2.0 ** float(ln.shift0[i])
             qi = ln.qintervals[ln.slot(i)]
@@ -774,6 +836,15 @@ def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_
                 lo, hi, stp = 0.0, 0.0, 1.0
             q[i] = (lo, hi, stp)
             lb[i] = ln.latencies[ln.slot(i)]
+        if d:
+            q[n_in_max:], lb[n_in_max:] = ln.prefix.qmeta, ln.prefix.lat
+            # the prefix records in device slot space: op ids shift up with
+            # the input padding (emission shifts them back)
+            rec = ln.prefix.rec.astype(np.int32).copy()
+            for c in (0, 1):
+                rec[:, c] = np.where(rec[:, c] >= ni, rec[:, c] + (n_in_max - ni), rec[:, c])
+            recs[a].append(rec)
+            st_cur[a] = n_in_max + d
         hE.append(E)
         hq.append(q)
         hl.append(lb)
@@ -790,8 +861,8 @@ def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_
                 for a in pend:
                     net[active[a]] = _host_lane(lanes[active[a]], adder_size, carry_size, memo)
                 break
-        spec = _resolve_rung_class(P, O, B, adder_size, carry_size, next_pow2(cur_max))
-        per_lane = _rung_bytes_per_lane(P, O, B, spec.topk)
+        spec = _resolve_rung_class(P, O, B, adder_size, carry_size, next_pow2(cur_max), full_rec=has_prefix)
+        per_lane = _rung_bytes_per_lane(spec)
         max_lanes = max(1, DEVICE_BUDGET // per_lane)
         if _bucket_lanes(max_lanes) * per_lane > DEVICE_BUDGET:
             max_lanes = 1 << (max_lanes.bit_length() - 1)
@@ -977,12 +1048,34 @@ def solve_torch_many(
     - ``hard_dc >= 0``: the host's shrink-and-retry dc ladder runs as extra
       lanes; if no candidate meets the budget the forced dc = -1 / wmc-dc
       lane is accepted, as the host's terminal break.
+    - ``quality`` (a preset name, ``SearchSpec`` or its dict form): the
+      spec's portfolio merges into ``method0_candidates``, its restarts
+      raise ``n_restarts`` (never lower it), its ``include_host`` is or-ed
+      in, and the beam forks stage-0 lanes on the device (``torch_beam``):
+      with ``focus == 0`` every eligible lane forks into the base batch;
+      with ``focus > 0`` the base batch solves first and only each matrix's
+      ``focus`` cheapest base trajectories fork, in a second pair of
+      stage-0/stage-1 batches. Every fork carries its own stage-1 solve; the
+      unforked lanes stay in the batch, so the result is never worse than
+      ``quality='fast'``, which (like None) is today's path byte for byte.
     """
-    if quality not in (None, 'fast'):
-        raise NotImplementedError(f'quality={quality!r}: the beam search is not ported (only None / "fast")')
     if mesh is not None:
         raise NotImplementedError('mesh: the multi-device search is not ported')
     dev = resolve_device(device)
+
+    spec = None
+    if quality is not None:
+        from .search.spec import resolve_quality
+
+        spec = resolve_quality(quality)
+        if spec.is_fast:
+            spec = None  # the byte-identical default path
+    if spec is not None:
+        # the spec's axes merge into (never replace) the caller's
+        method0_candidates = list(dict.fromkeys([*(method0_candidates or [method0]), *spec.portfolio]))
+        n_restarts = max(int(n_restarts or 1), spec.n_restarts)
+        include_host = include_host or spec.include_host
+        search_stats['beam_width'] = spec.beam
 
     kernels = [np.asarray(k, dtype=np.float64) for k in kernels]
     n_mat = len(kernels)
@@ -1040,14 +1133,55 @@ def solve_torch_many(
         lanes0.append(_Lane(mat0, _qints(mi), _lats(mi), method_0, perm=perm))
         mats1.append(mat1)
 
+    def _stage1(refs: list[int], sols0: list) -> list:
+        """Stage-1 lanes fed by stage-0 outputs, solved as one batch."""
+        lanes1 = [
+            _Lane(mats1[ji], list(s0.out_qint), list(s0.out_latency), _lane_method(mpairs[jobs[ji][2]][1], jobs[ji][1], hard_eff))
+            for ji, s0 in zip(refs, sols0)
+        ]  # fmt: skip
+        return solve_single_lanes(lanes1, adder_size, carry_size, device=dev)
+
+    # beam forks: decision prefixes as extra stage-0 lanes. exp_refs maps
+    # every stage-0 lane to its job; slot 0 is the unforked lane, slots > 0
+    # the forks
+    exp_refs = list(range(len(jobs)))
+    slot_ids = [0] * len(jobs)
+    fork_meta: list = [None] * len(jobs)
+    two_phase = spec is not None and spec.forks and spec.focus > 0
+    if spec is not None and spec.forks and not two_phase:
+        from .torch_beam import _expand_forks
+
+        for slot, (ji, fln, meta) in enumerate(_expand_forks(lanes0, spec, adder_size, carry_size, device=dev), 1):
+            lanes0.append(fln)
+            exp_refs.append(ji)
+            slot_ids.append(slot)
+            fork_meta.append(meta)
+
     # both stages keep native solutions as RawComb handles: only the argmin's
     # winners become CombLogics
     sols0 = solve_single_lanes(lanes0, adder_size, carry_size, device=dev)
-    lanes1 = [
-        _Lane(mat1, list(sol0.out_qint), list(sol0.out_latency), _lane_method(mpairs[mp][1], dc, hard_eff))
-        for (mi, dc, mp, r), sol0, mat1 in zip(jobs, sols0, mats1)
-    ]
-    sols1 = solve_single_lanes(lanes1, adder_size, carry_size, device=dev)
+    sols1 = _stage1(exp_refs, sols0)
+
+    if two_phase:
+        # focused forking: fork only each matrix's spec.focus cheapest base
+        # trajectories, then solve the forks as a second pair of batches
+        from .torch_beam import _expand_forks
+
+        per_m: dict[int, list[tuple[float, int]]] = {}
+        for x, (mi, _, _, _) in enumerate(jobs):
+            if lanes0[x].method != 'dummy':
+                per_m.setdefault(mi, []).append((float(sols0[x].cost) + float(sols1[x].cost), x))
+        focus_idx = sorted(x for mi in sorted(per_m) for _, x in sorted(per_m[mi])[: spec.focus])
+        forks = _expand_forks([lanes0[x] for x in focus_idx], spec, adder_size, carry_size, device=dev)
+        if forks:
+            for slot, (si, _, meta) in enumerate(forks, 1):
+                exp_refs.append(focus_idx[si])
+                slot_ids.append(slot)
+                fork_meta.append(meta)
+            sols0_f = solve_single_lanes([fln for _, fln, _ in forks], adder_size, carry_size, device=dev)
+            sols0 = list(sols0) + list(sols0_f)
+            sols1 = list(sols1) + list(_stage1(exp_refs[len(jobs) :], sols0_f))
+    exp_jobs = [jobs[ji] for ji in exp_refs]
 
     allowed = [inf] * n_mat
     if hard_dc >= 0:
@@ -1055,15 +1189,16 @@ def solve_torch_many(
             allowed[mi] = hard_dc + _host_api.minimal_latency(kern, _qints(mi), _lats(mi), carry_size, adder_size)
 
     # sweep mode: argmin cost over in-budget candidates; otherwise the host
-    # preference — the first fitting dc down the ladder, per method pair and
-    # restart — then argmin across those; nothing fits: the dc = -1 terminal
+    # preference — the first fitting dc down the ladder, per method pair,
+    # restart and beam slot — then argmin across those; nothing fits: the
+    # dc = -1 terminal
     best_cost = [inf] * n_mat
     best: list[tuple | None] = [None] * n_mat
-    first_fit: dict[tuple[int, int, int], tuple] = {}
+    first_fit: dict[tuple[int, int, int, int], tuple] = {}
     terminal: list[tuple | None] = [None] * n_mat
-    for (mi, dc, mp, r), sol0, sol1 in zip(jobs, sols0, sols1):
+    for (mi, dc, mp, r), slot, sol0, sol1 in zip(exp_jobs, slot_ids, sols0, sols1):
         pair = (sol0, sol1)
-        if dc == -1 and r == 0 and terminal[mi] is None:
+        if dc == -1 and r == 0 and slot == 0 and terminal[mi] is None:
             terminal[mi] = pair
         if max((lt for s in pair for lt in s.out_latency), default=0.0) > allowed[mi]:
             continue
@@ -1071,9 +1206,9 @@ def solve_torch_many(
         if search_all_decompose_dc:
             if c < best_cost[mi]:
                 best_cost[mi], best[mi] = c, pair
-        elif (mi, mp, r) not in first_fit:
-            first_fit[(mi, mp, r)] = pair
-    for (mi, _, _), pair in first_fit.items():
+        elif (mi, mp, r, slot) not in first_fit:
+            first_fit[(mi, mp, r, slot)] = pair
+    for (mi, _, _, _), pair in first_fit.items():
         c = float(pair[0].cost) + float(pair[1].cost)
         if c < best_cost[mi]:
             best_cost[mi], best[mi] = c, pair
@@ -1087,6 +1222,17 @@ def solve_torch_many(
             search_stats['over_budget_accepts'] += 1
         results.append(Pipeline(stages=(_as_comb(pair[0]), _as_comb(pair[1]))))
 
+    if spec is not None and spec.forks:
+        # training data of the learned ranker: every completed fork
+        # trajectory as (features, chosen, final-cost-delta) records
+        from .search import trace as _strace
+
+        tdir = _strace.trace_dir()
+        if tdir:
+            totals = [float(s0.cost) + float(s1.cost) for s0, s1 in zip(sols0, sols1)]
+            base_totals = {jt: totals[x] for x, (jt, slot) in enumerate(zip(exp_jobs, slot_ids)) if slot == 0}
+            _strace.export_records(tdir, _strace.solve_records(kernels, exp_jobs, slot_ids, fork_meta, totals, base_totals))
+
     if include_host:
         for mi in range(n_mat):
             host = _host_api.solve(
@@ -1095,6 +1241,9 @@ def solve_torch_many(
                 carry_size=carry_size, search_all_decompose_dc=search_all_decompose_dc, backend='auto',
                 method0_candidates=method0_candidates,
             )  # fmt: skip
-            if float(host.cost) < float(results[mi].cost):
+            dcost, hcost = float(results[mi].cost), float(host.cost)
+            # device lanes strictly beating the host solver, tying, or rescued by it
+            search_stats['strict_wins' if dcost < hcost else 'ties' if dcost == hcost else 'host_rescues'] += 1
+            if hcost < dcost:
                 results[mi] = host
     return results

@@ -19,7 +19,7 @@ from .ir.comb import CombLogic
 _FLAGSHIP: dict[tuple, CombLogic] = {}
 
 
-def flagship_comb(n_in=16, hidden=(32, 32), n_out=5, backend='auto', n_workers=0, device=None) -> CombLogic:
+def flagship_comb(n_in=16, hidden=(32, 32), n_out=5, backend='auto', n_workers=0, device=None, quality=None) -> CombLogic:
     """Trace the JEDI-linear-style MLP to a CombLogic: 4-bit integer weights,
     ``relu(i=5, f=2)`` between layers, inputs quantized to (1, 3, 2).
 
@@ -27,9 +27,9 @@ def flagship_comb(n_in=16, hidden=(32, 32), n_out=5, backend='auto', n_workers=0
     ``n_workers`` host processes share each layer's decompose-depth sweep of
     the ``'cpu'`` solver (threads of the ``'cpp'`` one) without changing the
     result; ``device`` is where the ``'torch'`` backend searches (the card
-    when None).
+    when None); ``quality`` is the solver's search strategy (a preset name).
     """
-    key = (n_in, tuple(hidden), n_out, backend, None if device is None else str(device))
+    key = (n_in, tuple(hidden), n_out, backend, None if device is None else str(device), quality)
     if key in _FLAGSHIP:
         return _FLAGSHIP[key]
     from .trace import FixedVariableArrayInput, HWConfig, comb_trace
@@ -40,6 +40,8 @@ def flagship_comb(n_in=16, hidden=(32, 32), n_out=5, backend='auto', n_workers=0
         opts['n_workers'] = n_workers
     if device is not None:
         opts['device'] = device
+    if quality is not None:
+        opts['quality'] = quality
     inp = FixedVariableArrayInput(n_in, hwconf=HWConfig(1, -1, -1), solver_options=opts)
     x = inp.quantize(np.ones(n_in), np.full(n_in, 3), np.full(n_in, 2))
     dims = [n_in, *hidden, n_out]

@@ -246,8 +246,6 @@ def test_verify_no_paths_errors(capsys):
 @pytest.mark.parametrize(
     'argv,item',
     [
-        (['--quality', 'search'], 'item 6'),
-        (['--quality', 'max'], 'item 6'),
         (['--deadline', '5'], 'item 10'),
         (['--fallback', 'on'], 'item 10'),
         (['--resume', 'ckpt.json'], 'item 10'),

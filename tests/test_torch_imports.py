@@ -173,6 +173,31 @@ def test_scans_cover_the_cli_modules():
     assert {f'da4ml_tpu_torch/{m}.py' for m in mods} <= files
 
 
+def test_scans_cover_the_search_modules():
+    files = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    mods = ['cmvm/torch_beam'] + [f'cmvm/search/{m}' for m in ('__init__', 'spec', 'ranker', 'beam', 'trace', 'train')]
+    assert {f'da4ml_tpu_torch/{m}.py' for m in mods} <= files
+
+
+def test_quality_search_imports_neither_jax_nor_reference_package():
+    """A ``quality='search'`` solve on the CPU (the device beam, the host
+    replay, the trace export) and the trainer import neither jax nor
+    da4ml_tpu."""
+    code = (
+        'import sys, os, tempfile, numpy as np; os.environ["DA4ML_SEARCH_TRACE_DIR"] = tempfile.mkdtemp(); '
+        'from da4ml_tpu_torch.cmvm import solve; from da4ml_tpu_torch.cmvm.search.train import train_from_dir; '
+        'W = np.random.default_rng(0).integers(-8, 8, (5, 5)).astype(float); '
+        'sol = solve(W, backend="torch", quality="search", device="cpu"); '
+        'assert np.array_equal(np.asarray(sol.kernel, float), W); '
+        'train_from_dir(os.environ["DA4ML_SEARCH_TRACE_DIR"]); '
+        'bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "da4ml_tpu")); assert not bad, bad; '
+        'print("ok")'
+    )
+    proc = subprocess.run([sys.executable, '-c', code], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    assert proc.stdout.strip().splitlines()[-1] == 'ok'
+
+
 @pytest.mark.parametrize('path', PORT_FILES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     src = path.read_text()

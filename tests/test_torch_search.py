@@ -307,8 +307,9 @@ def test_backend_torch_routes_to_device_search(rng):
     direct = ts.solve_torch(kernel, device='cpu')
     assert_exact(via_api, kernel)
     assert ops_sig(via_api) == ops_sig(direct)
-    with pytest.raises(NotImplementedError, match='beam'):
-        ts.solve_torch(kernel, quality='search', device='cpu')
+    beam = api.solve(kernel, backend='torch', quality='search', device='cpu')
+    assert_exact(beam, kernel)
+    assert float(beam.cost) <= float(via_api.cost)
     with pytest.raises(NotImplementedError, match='mesh'):
         ts.solve_torch(kernel, mesh=object(), device='cpu')
 
