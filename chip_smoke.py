@@ -161,7 +161,24 @@ on them against its plain PyTorch version:
    --solver-backend torch`` of the config-5 twin in a child process, its
    Verilog project equal to the JAX package's, and with the default
    ``'auto'`` backend, which exits 0 with the degrade warning;
-16. the command line, each step ``python -m da4ml_tpu_torch`` in a child
+16. telemetry: ``convert --trace`` of the flagship twin's ``.pt``
+   (``models.flagship_twin``: the flagship's widths as an ``nn.Module``, so
+   the conversion solves through K2) in a child, the trace passed by the
+   port's ``validate_trace`` and holding ``cmvm.solve``, ``run.call`` and
+   ``codegen.rtl.write``, then ``stats`` and ``trace-view`` on it; the
+   device profile in another child started with ``DA4ML_PROFILE`` and
+   ``DA4ML_TRACE`` set (``profile_child``: two device solves of the
+   flagship, K2, each program equal to the JAX package's, and two flagship
+   calls on ``FLAGSHIP_SAMPLES`` samples, K1, held to the reference
+   interpreter), every K1 and K2 kernel event of its ``torch.profiler`` trace inside
+   its ``da4ml:run.call`` / ``da4ml:cmvm.rung`` range, and the busy shares
+   (kernel time over the enclosing span's wall time); the flagship call
+   timed with telemetry off, ``enable()`` and ``enable(path)``, held to the
+   reference interpreter; the live endpoint (``telemetry.serve()`` on an
+   ephemeral port) scraped after a flagship call held to the reference
+   interpreter, and its ``/metrics`` held to ``validate_openmetrics``. It runs beside the twin's
+   g++ build, before phase 17;
+17. the command line, each step ``python -m da4ml_tpu_torch`` in a child
    process with its exit code checked: the flagship saved as ``.json`` and
    converted to HLS projects (``vitis``, ``hlslib``, ``oneapi``) equal to
    the JAX package's (``CLI_DIGESTS``), then converted with
@@ -179,7 +196,7 @@ on them against its plain PyTorch version:
    to K2's plain version, K1 on both programs, the emulator the command
    line built held to K1, and the g++ build, emulator and K1 times
    (``cli_flagship``, ``cli_twin``);
-17. checks that neither jax nor da4ml_tpu was imported.
+18. checks that neither jax nor da4ml_tpu was imported.
 
 Every count is set to 0 just before its path is driven and read just after;
 the kernel line gives each kernel's main-path launches summed over the
@@ -188,7 +205,10 @@ paths and by path (K1's pipeline modes as ``fusion_<mode>`` and
 ``firmware_twin``, the command line's as ``cli_flagship`` and ``cli_twin``:
 its in-process calls, since a child's counts stay in the child; the quality
 search's as ``quality_flagship_<q>``, ``quality_corpus`` and
-``quality_config5``).
+``quality_config5``; the telemetry phase's as ``telemetry_profile`` (the
+profile child's wrapper counts, reset in the child just before its solves
+and calls and read just after), ``telemetry_overhead`` and
+``telemetry_endpoint``; the convert child's launches stay in the child).
 
 Prints the wall time of each phase, the kernel table as one JSON line,
 the card line, and last
@@ -196,6 +216,8 @@ the card line, and last
 there is no CUDA device or any phase fails.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
+``python3 chip_smoke.py --profile-child DIR`` is the telemetry phase's
+profile run, started by the phase itself.
 """
 
 from __future__ import annotations
@@ -343,6 +365,8 @@ QUALITY_REF_SAMPLES = 1 << 16
 #: config 5's fork rung calls held to K2's plain version (its plain version
 #: is slow at config 5's sizes)
 CONFIG5_FORK_CHECKS = 4
+#: flagship calls timed with telemetry off and on (``telemetry_overhead``)
+TELEMETRY_REPEATS = 9
 
 
 def project_digest(root) -> str:
@@ -2207,7 +2231,7 @@ def cli_twin(torch, ts, fused_cse, tmp, card: str) -> dict:
 
 
 def run_cli(torch, ts, fused_cse, comb, card: str, tmp, chain: CliTwinChain) -> dict:
-    """Phase 16: the command line as a user runs it
+    """Phase 17: the command line as a user runs it
     (``python -m da4ml_tpu_torch``, each step a child process, its exit code
     checked): the flagship saved as ``.json`` converted to HLS projects in
     each flavour (``CLI_DIGESTS``) and with ``--validate-rtl`` on
@@ -2537,6 +2561,329 @@ def run_quality(torch, ts, fused_cse, card: str, tmp, config5_cost: float) -> di
             'k2_err': max(r['max_abs_err'] for r in rows), 'k1_err': model['err']}  # fmt: skip
 
 
+# ---------------------------------------------------------------------------
+# telemetry: the command line's trace, the device profile, the overhead of
+# the instrumentation, the live endpoint
+# ---------------------------------------------------------------------------
+
+
+def profile_child(out: Path) -> int:
+    """The device-profile run, in a process of its own with ``DA4ML_PROFILE``
+    and ``DA4ML_TRACE`` set in its environment before the port is imported:
+    the flagship solved twice by the device search (K2; the second solve is
+    the measured one), each program byte-identical to the JAX package's
+    (``QUALITY_DIGESTS['fast']``), then the flagship program called twice on
+    ``FLAGSHIP_SAMPLES`` samples (K1), the output's first
+    ``QUALITY_REF_SAMPLES`` rows equal to the reference interpreter's. Each
+    solve runs inside a ``smoke.solve`` span. Stops the profiler (which
+    writes its Chrome trace), closes the span trace, and prints one JSON
+    line: both files, the K1 and K2 launch counts (the wrappers' own, reset
+    just before), and the host seconds of each solve and call."""
+    import torch
+
+    from da4ml_tpu_torch import telemetry
+    from da4ml_tpu_torch.cmvm import fused_cse
+    from da4ml_tpu_torch.entry import flagship_comb
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+    from da4ml_tpu_torch.telemetry.obs import profile
+
+    assert profile.profile_dir() and telemetry.tracing_active(), 'DA4ML_PROFILE and DA4ML_TRACE must be set'
+    torch.zeros(1, device='cuda')  # the CUDA context, outside every span
+    torch.cuda.synchronize()
+    fused_cse.reset_counts()
+    cuda_backend.reset_counts()
+    solve_s, call_s = [], []
+    for k, dev in enumerate(('cuda', 'cuda:0')):  # another device string is another cache key: a new solve
+        t0 = time.perf_counter()
+        with telemetry.span('smoke.solve', k=k):
+            comb = flagship_comb(backend='torch', device=dev)
+        solve_s.append(time.perf_counter() - t0)
+        digest = hashlib.sha256(comb.to_binary().astype('<i4').tobytes()).hexdigest()
+        assert digest == QUALITY_DIGESTS['fast'], f"profile child: the flagship differs from the JAX package's ({digest})"
+    prog = decode(comb.to_binary())
+    ex = DaisExecutor(prog)
+    data = np.random.default_rng(20260729).uniform(-8, 8, (FLAGSHIP_SAMPLES, comb.shape[0]))
+    for _ in range(2):
+        t0 = time.perf_counter()
+        y = ex(data)
+        call_s.append(time.perf_counter() - t0)
+    launches = {'k1': cuda_backend.launches, 'k2': fused_cse.launches}
+    path = profile.stop()
+    telemetry.disable()
+    assert y.shape == (FLAGSHIP_SAMPLES, comb.shape[1]) and np.isfinite(y).all()
+    reference_equal(prog, data[:QUALITY_REF_SAMPLES], y[:QUALITY_REF_SAMPLES])
+    print(json.dumps({'profile': path, 'trace': os.environ['DA4ML_TRACE'], **launches, 'solve_s': solve_s,
+                      'call_s': call_s}))  # fmt: skip
+    return 0
+
+
+#: the kernels' function names as the profiler lists them (a substring of
+#: each instantiation's name)
+PROFILE_KERNELS = {'dais_exec': 'dais_exec_kernel', 'fused_cse': 'fused_cse_kernel'}
+
+
+def profile_kernels(events: list[dict]) -> list[dict]:
+    """Every K1 and K2 kernel event of a ``torch.profiler`` Chrome trace, each
+    with the ``da4ml:`` range it ran in: ``{kernel, ts, dur, range, span,
+    how}``. ``how`` says how the range was found: ``'launch'`` (the kernel's
+    launch call, matched by its correlation id, lies inside a host
+    ``da4ml:`` range on the launching thread), ``'gpu range'`` (a
+    ``gpu_user_annotation`` ``da4ml:`` range holds the kernel), ``'time'``
+    (a host ``da4ml:`` range holds the kernel's run), or None."""
+    host = [e for e in events if e.get('ph') == 'X' and str(e.get('name', '')).startswith('da4ml:')
+            and e.get('cat') != 'gpu_user_annotation']  # fmt: skip
+    gpu = [e for e in events if e.get('ph') == 'X' and str(e.get('name', '')).startswith('da4ml:')
+           and e.get('cat') == 'gpu_user_annotation']  # fmt: skip
+    launch = {e['args']['correlation']: e for e in events if e.get('ph') == 'X' and e.get('cat') in ('cuda_runtime', 'cuda_driver')
+              and 'correlation' in e.get('args', {})}  # fmt: skip
+
+    def within(rs, ts, end, tid=None):
+        hits = [r for r in rs if r['ts'] <= ts and end <= r['ts'] + r['dur'] and (tid is None or r.get('tid') == tid)]
+        return min(hits, key=lambda r: r['dur']) if hits else None
+
+    out = []
+    for e in events:
+        if e.get('ph') != 'X' or e.get('cat') != 'kernel':
+            continue
+        kind = next((k for k, sub in PROFILE_KERNELS.items() if sub in str(e.get('name', ''))), None)
+        if kind is None:
+            continue
+        ts, end = float(e['ts']), float(e['ts']) + float(e['dur'])
+        how, r = None, None
+        call = launch.get(e.get('args', {}).get('correlation'))
+        if call is not None:
+            r = within(host, float(call['ts']), float(call['ts']) + float(call['dur']), call.get('tid'))
+            how = 'launch' if r else None
+        if r is None:
+            r = within(gpu, ts, end)
+            how = 'gpu range' if r else None
+        if r is None:
+            r = within(host, ts, end)
+            how = 'time' if r else None
+        name = r['name'] if r else None
+        span = int(name.split('#span=')[1]) if name and '#span=' in name else None
+        out.append({'kernel': kind, 'ts': ts, 'dur': float(e['dur']), 'range': name and name.split('#')[0], 'span': span,
+                    'how': how})  # fmt: skip
+    return out
+
+
+def busy_shares(kernels: list[dict], spans: list[dict]) -> dict:
+    """Each kernel's summed device time over the wall time of the telemetry
+    span that encloses it: K1 per ``run.call`` span (the last call), K2 per
+    ``smoke.solve`` span (the second solve), walking each kernel's range's
+    span up the trace's parent links."""
+    by_id = {e['args']['span_id']: e for e in spans if e.get('ph') == 'X' and 'span_id' in e.get('args', {})}
+
+    def ancestor(sid, name):
+        while sid is not None and sid in by_id:
+            if by_id[sid]['name'] == name:
+                return by_id[sid]
+            sid = by_id[sid]['args'].get('parent_id')
+        return None
+
+    out = {}
+    for kind, name in (('dais_exec', 'run.call'), ('fused_cse', 'smoke.solve')):
+        per: dict[int, float] = {}
+        for k in kernels:
+            if k['kernel'] == kind:
+                sp = ancestor(k['span'], name)
+                if sp is not None:
+                    per[sp['args']['span_id']] = per.get(sp['args']['span_id'], 0.0) + k['dur']
+        assert per, f'no {kind} kernel inside a {name} span'
+        last = max(per, key=lambda sid: by_id[sid]['ts'])
+        out[kind] = {'span': name, 'kernel_us': per[last], 'span_us': float(by_id[last]['dur']),
+                     'share': per[last] / float(by_id[last]['dur']), 'spans': len(per)}  # fmt: skip
+    return out
+
+
+def telemetry_cli(torch, tmp, card: str) -> dict:
+    """``convert --trace`` in a child (the flagship twin's ``.pt`` through K2,
+    validation on K1, Verilog): the port's ``validate_trace`` passes the
+    trace, which holds ``cmvm.solve``, ``run.call`` and ``codegen.rtl.write``
+    and K1's build metrics (``run.pallas.*``, recorded at a launch on the
+    card only); ``stats`` and ``trace-view`` read it and exit 0. The child's
+    K1 and K2 launches stay in the child: they join no launch count."""
+    import contextlib
+    import io
+
+    from da4ml_tpu_torch import telemetry
+    from da4ml_tpu_torch._cli import main as cli_main
+    from da4ml_tpu_torch.models import CONFIG5_INPUTS_KIF, flagship_twin
+
+    torch.save(flagship_twin(), tmp / 'flagship.pt')
+    run = CliRun(tmp, 'telemetry_convert', ['convert', 'flagship.pt', 'tel_prj', '--solver-backend', 'torch',
+                                            '--inputs-kif', *map(str, CONFIG5_INPUTS_KIF), '--trace', 't.json'],
+                 cwd=tmp)  # fmt: skip
+    run.wait(timeout=300)
+    events, metrics = telemetry.load_trace(tmp / 't.json')
+    telemetry.validate_trace(events)
+    names = {e['name'] for e in events}
+    assert {'cmvm.solve', 'run.call', 'codegen.rtl.write'} <= names, f'telemetry cli: the trace lacks spans: {names}'
+    assert {'run.pallas.compile_s', 'run.pallas.vmem_bytes', 'run.mode.pallas', 'sched.device_s'} <= set(metrics), sorted(metrics)
+    mism = json.loads((tmp / 'tel_prj' / 'mismatches.json').read_text())
+    assert mism['n_mismatch'] == 0, f'telemetry cli: {mism}'
+    outs = {}
+    for label, argv in (('stats', ['stats', str(tmp / 't.json'), '--validate']),
+                        ('trace-view', ['trace-view', str(tmp / 't.json'), '--out', str(tmp / 'merged.json')])):  # fmt: skip
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = cli_main(argv)
+        assert rc == 0, f'telemetry cli: {label} exited {rc}'
+        outs[label] = buf.getvalue()
+    assert f'{len(events)} events' in outs['stats'] and 'cmvm.solve' in outs['stats']
+    rounds = int(metrics['cse.device_rounds']['value'])
+    print(f"telemetry cli: convert --trace of the flagship twin {run.seconds:.1f} s, {len(events)} events in "
+          f"{len(names)} span names, valid; {rounds} device rung calls (cse.device_rounds), 0 mismatches; stats and "
+          f"trace-view exit 0; the summary's top spans:", flush=True)  # fmt: skip
+    for line in outs['stats'].splitlines()[1:8]:
+        print(f'  {line}')
+
+
+def telemetry_profile(torch, tmp, card: str) -> dict:
+    """The device profile (``profile_child`` in a child process): the
+    exported profile must hold the K1 and K2 kernel events, each inside its
+    ``da4ml:`` range (``run.call`` for K1, ``cmvm.rung`` for K2); prints the
+    busy shares (``busy_shares``)."""
+    from da4ml_tpu_torch.telemetry import load_trace
+
+    pdir = tmp / 'profile'
+    env = dict(os.environ, DA4ML_PROFILE=str(pdir), DA4ML_TRACE=str(pdir / 'spans.json'))
+    root = Path(__file__).resolve().parent
+    env['PYTHONPATH'] = os.pathsep.join(p for p in (str(root), env.get('PYTHONPATH', '')) if p)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()), '--profile-child', str(pdir)], cwd=root, env=env,
+                          capture_output=True, text=True, timeout=600)  # fmt: skip
+    child_s = time.perf_counter() - t0
+    assert proc.returncode == 0, f'profile child: exit {proc.returncode}\n{proc.stderr[-4000:]}\n{proc.stdout[-2000:]}'
+    got = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert got['profile'], f'profile child: no profile written\n{proc.stderr[-2000:]}'
+    doc = json.loads(Path(got['profile']).read_text())
+    events = doc['traceEvents'] if isinstance(doc, dict) else doc
+    kernels = profile_kernels(events)
+    spans, _ = load_trace(got['trace'])
+    n = {k: sum(e['kernel'] == k for e in kernels) for k in PROFILE_KERNELS}
+    hows = {}
+    for e in kernels:
+        hows[e['how']] = hows.get(e['how'], 0) + 1
+    print(f"[{card}] telemetry profile: child {child_s:.1f} s; {len(events)} profile events, {n['dais_exec']} K1 and "
+          f"{n['fused_cse']} K2 kernel events (the child launched K1 {got['k1']} and K2 {got['k2']} times); ranges "
+          f"found by {hows}; device solves {', '.join(f'{s:.3f}' for s in got['solve_s'])} s, calls "
+          f"{', '.join(f'{s:.4f}' for s in got['call_s'])} s (host clock)", flush=True)  # fmt: skip
+    assert n['dais_exec'] == got['k1'] > 0 and n['fused_cse'] == got['k2'] > 0, 'the profile lacks kernel events'
+    outside = [e for e in kernels if e['range'] != {'dais_exec': 'da4ml:run.call', 'fused_cse': 'da4ml:cmvm.rung'}[e['kernel']]]
+    assert not outside, f'kernels outside their da4ml: range: {outside[:4]}'
+    shares = busy_shares(kernels, spans)
+    for kind, b in shares.items():
+        print(f"[{card}] busy share, {kind}: {b['kernel_us'] / 1e3:.4f} ms of kernel time in a {b['span']} span of "
+              f"{b['span_us'] / 1e3:.4f} ms: {100 * b['share']:.2f} % ({b['spans']} such spans)", flush=True)  # fmt: skip
+    return {'k1_launches': got['k1'], 'k2_launches': got['k2'], 'shares': shares}
+
+
+def telemetry_overhead(torch, comb, tmp, card: str) -> dict:
+    """The flagship call (``FLAGSHIP_SAMPLES`` samples through K1, host
+    clock) with telemetry off, with ``enable()`` (metrics) and with
+    ``enable(path)`` (metrics and spans into a JSONL sink): the median of
+    ``TELEMETRY_REPEATS`` calls each, after one warm call whose first
+    ``QUALITY_REF_SAMPLES`` rows equal the reference interpreter's; every
+    timed call's output equals the warm call's."""
+    from da4ml_tpu_torch import telemetry
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+
+    prog = decode(comb.to_binary())
+    ex = DaisExecutor(prog)
+    data = np.random.default_rng(20260729).uniform(-8, 8, (FLAGSHIP_SAMPLES, comb.shape[0]))
+    assert not telemetry.metrics_on() and not telemetry.tracing_active()
+    cuda_backend.reset_counts()
+    want = ex(data)
+    reference_equal(prog, data[:QUALITY_REF_SAMPLES], want[:QUALITY_REF_SAMPLES])
+    med = {}
+    for label, path in (('off', None), ('enable()', ''), ('enable(path)', tmp / 'overhead.jsonl'), ('off again', None)):
+        if path is not None:
+            telemetry.enable(path or None)
+        times = []
+        for _ in range(TELEMETRY_REPEATS):
+            t0 = time.perf_counter()
+            y = ex(data)
+            times.append(time.perf_counter() - t0)
+        assert np.array_equal(y, want)
+        med[label] = statistics.median(times)
+        telemetry.reset()
+    launches = cuda_backend.launches
+    x = ex.int_inputs(data)
+    k1_ms = cuda_ms(lambda: ex.fn_int(x), reps=20)
+    print(f"[{card}] telemetry overhead, the flagship call on {FLAGSHIP_SAMPLES} samples (host clock, median of "
+          f"{TELEMETRY_REPEATS}): {', '.join(f'{k} {v * 1e3:.3f} ms' for k, v in med.items())}; K1 alone "
+          f"{k1_ms:.4f} ms (CUDA events, telemetry off)", flush=True)  # fmt: skip
+    return {'k1_launches': launches, 'medians': med, 'k1_ms': k1_ms}
+
+
+def telemetry_endpoint(torch, comb, card: str) -> dict:
+    """``telemetry.serve()`` on an ephemeral port; one flagship call, its
+    output equal to the reference interpreter's; one scrape of ``/metrics``
+    held to ``validate_openmetrics``, and ``/healthz`` and ``/statusz``
+    read."""
+    import urllib.request
+
+    from da4ml_tpu_torch import telemetry
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+    from da4ml_tpu_torch.telemetry.obs import stop_server, validate_openmetrics
+
+    server = telemetry.serve(port=0)
+    try:
+        prog = decode(comb.to_binary())
+        ex = DaisExecutor(prog)
+        data = np.random.default_rng(1).uniform(-8, 8, (4096, comb.shape[0]))
+        cuda_backend.reset_counts()
+        y = ex(data)
+        launches = cuda_backend.launches
+        reference_equal(prog, data, y)
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(f'{server.url}/metrics', timeout=30) as r:
+            text = r.read().decode()
+        scrape_s = time.perf_counter() - t0
+        fams = validate_openmetrics(text)
+        assert fams['da4ml_run_samples']['samples']['da4ml_run_samples_total'] == 4096, 'scrape: run.samples'
+        with urllib.request.urlopen(f'{server.url}/healthz', timeout=30) as r:
+            health = json.loads(r.read())
+        with urllib.request.urlopen(f'{server.url}/statusz', timeout=30) as r:
+            status = json.loads(r.read())
+        assert health['status'] == 'ok' and status['devices']['count'] >= 1, (health, status['devices'])
+    finally:
+        stop_server()
+        telemetry.reset()
+    print(f"telemetry endpoint: /metrics at {server.url} valid OpenMetrics, {len(fams)} families, {len(text)} bytes, "
+          f"scraped in {scrape_s * 1e3:.2f} ms; /healthz {health['status']}; /statusz lists "
+          f"{status['devices']['devices'][0]['name']}", flush=True)  # fmt: skip
+    return {'k1_launches': launches}
+
+
+def run_telemetry(torch, comb, card: str) -> dict:
+    """The telemetry phase: ``telemetry_cli``, ``telemetry_profile``,
+    ``telemetry_overhead`` and ``telemetry_endpoint``, in that order. Prints
+    the phase's wall time by step."""
+    laps = Laps()
+    with tempfile.TemporaryDirectory(prefix='chip_smoke_telemetry_') as d:
+        tmp = Path(d)
+        telemetry_cli(torch, tmp, card)
+        laps.lap('command line')
+        prof = telemetry_profile(torch, tmp, card)
+        laps.lap('device profile')
+        over = telemetry_overhead(torch, comb, tmp, card)
+        laps.lap('overhead')
+        end = telemetry_endpoint(torch, comb, card)
+        laps.lap('endpoint')
+    print(f'telemetry wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
+    return {'k1_paths': {'telemetry_profile': prof['k1_launches'], 'telemetry_overhead': over['k1_launches'],
+                         'telemetry_endpoint': end['k1_launches']},
+            'k2_paths': {'telemetry_profile': prof['k2_launches']}}  # fmt: skip
+
+
 def main() -> int:
     import torch
 
@@ -2602,7 +2949,7 @@ def main() -> int:
     assert native.has_solver() and native.has_emit()
     phases.lap('builds')
 
-    # phase 16's twin steps start now, beside the phases before it: the
+    # phase 17's twin steps start now, beside the phases before it: the
     # command line's g++ build of the twin's emulator is the run's longest step
     cli_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_cli_')
     chain = CliTwinChain(torch, Path(cli_tmp.name))
@@ -2794,13 +3141,18 @@ def main() -> int:
     quality = run_quality(torch, ts, fused_cse, card, Path(cli_tmp.name), model['cost'])
     phases.lap('quality search')
 
-    # phase 16: the command line — convert to HLS projects (K2, K1 against
+    # phase 16: telemetry — convert --trace in a child, the device profile of
+    # K1 and K2 in another, the instrumentation's overhead, the live endpoint
+    tel = run_telemetry(torch, comb_dev, card)
+    phases.lap('telemetry')
+
+    # phase 17: the command line — convert to HLS projects (K2, K1 against
     # the g++ emulator), verify (conformance through K1), lint-opcodes
     cli = run_cli(torch, ts, fused_cse, comb_dev, card, Path(cli_tmp.name), chain)
     cli_tmp.cleanup()
     phases.lap('cli')
 
-    # phase 17: the port imported nothing of JAX
+    # phase 18: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
     k1_paths = {'flagship': dais['launches'], 'config5': model['k1_launches'], 'fusion': fusion['k1_launches'],
@@ -2809,10 +3161,10 @@ def main() -> int:
                 **{f'pipeline_model_{mode}': n for mode, n in pipeline_launches.items()},
                 'firmware_flagship': firmware['flagship']['k1_launches'], 'firmware_twin': firmware['twin']['k1_launches'],
                 'cli_flagship': cli['flagship']['k1_launches'], 'cli_twin': cli['twin']['k1_launches'],
-                **quality['k1_paths']}  # fmt: skip
+                **quality['k1_paths'], **tel['k1_paths']}  # fmt: skip
     k2_paths = {'flagship': k2_launches, 'config5': model['k2_launches'], 'fusion': fusion['k2_launches'],
                 'firmware_twin': firmware['twin']['k2_launches'], 'cli_twin': cli['twin']['k2_launches'],
-                **quality['k2_paths']}  # fmt: skip
+                **quality['k2_paths'], **tel['k2_paths']}  # fmt: skip
     k1_err = max(dais['max_abs_err'], firmware['flagship']['k1_err'], firmware['twin']['k1_err'], quality['k1_err'])
     kernels_line = [
         {**dais, 'max_abs_err': k1_err, 'launches': sum(k1_paths.values()), 'launches_by_path': k1_paths},
@@ -2842,4 +3194,6 @@ def main() -> int:
 
 
 if __name__ == '__main__':
+    if sys.argv[1:2] == ['--profile-child']:
+        sys.exit(profile_child(Path(sys.argv[2])))
     sys.exit(main())

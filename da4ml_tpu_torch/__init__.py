@@ -16,7 +16,51 @@ The firmware path: ``converter.trace_model`` turns an ``nn.Module`` into the
 trace, and ``codegen.VerilogModel``/``VHDLModel``/``HLSModel`` write the
 project once the verifier (``analysis``) passes the program. The command
 line, ``python -m da4ml_tpu_torch`` (``convert``, ``report``, ``verify``,
-``lint-opcodes``), drives both paths.
+``lint-opcodes``), drives both paths. ``telemetry`` holds the spans, metrics and trace
+export of both, and the device profile (``DA4ML_PROFILE``).
+
+The root exports what ``da4ml_tpu``'s does (``da4ml_tpu/__init__.py``):
+the IR types at import, ``solve``, ``trace_model``, ``verify`` and
+``telemetry`` on first use, so ``import da4ml_tpu_torch`` stays light (no
+torch import, no CUDA initialisation).
 """
 
+from .ir import CombLogic, LookupTable, Op, Pipeline, Precision, QInterval, minimal_kif
+
 __version__ = '0.1.0'
+
+__all__ = [
+    'CombLogic',
+    'Pipeline',
+    'Op',
+    'QInterval',
+    'Precision',
+    'LookupTable',
+    'minimal_kif',
+    'solve',
+    'trace_model',
+    'verify',
+    'telemetry',
+    '__version__',
+]
+
+
+def __getattr__(name):
+    # heavy surfaces resolve lazily so `import da4ml_tpu_torch` stays light
+    if name == 'solve':
+        from .cmvm import solve
+
+        return solve
+    if name == 'trace_model':
+        from .converter import trace_model
+
+        return trace_model
+    if name == 'verify':
+        from .analysis import verify
+
+        return verify
+    if name == 'telemetry':
+        import importlib
+
+        return importlib.import_module(f'{__name__}.telemetry')
+    raise AttributeError(f'module {__name__!r} has no attribute {name!r}')

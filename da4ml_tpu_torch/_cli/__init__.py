@@ -1,6 +1,6 @@
 """``da4ml-tpu-torch`` command line interface.
 
-Four subcommands:
+Seven subcommands:
 
 - ``convert`` — model file (a pickled ``torch.nn.Module`` ``.pt``/``.pth``,
   or a saved CombLogic/Pipeline ``.json``) → RTL/HLS project with optional
@@ -12,7 +12,13 @@ Four subcommands:
   differential pass, ``--fuzz N`` runs the corpus conformance +
   transfer-soundness sweep without paths;
 - ``lint-opcodes`` — fail on opcode dispatch sites outside the declarative
-  opcode table's allowlisted consumers.
+  opcode table's allowlisted consumers;
+- ``stats`` — summarize a telemetry trace captured with ``--trace`` /
+  ``DA4ML_TRACE``; ``--follow`` tails a streaming JSONL trace live;
+- ``trace-view`` — merge per-process traces into one clock-aligned
+  Perfetto timeline;
+- ``monitor`` — serve the live ``/metrics`` / ``/healthz`` / ``/statusz``
+  endpoints, optionally mirroring a followed trace.
 
 ``convert`` and ``verify`` run on the CUDA device unless ``--device cpu`` is
 given; with no CUDA device and no ``--device cpu`` they exit 2 with a
@@ -81,6 +87,24 @@ def main(argv: list[str] | None = None) -> int:
     )
     add_lint_opcodes_args(p_lint)
     p_lint.set_defaults(func=lint_opcodes_main)
+
+    from .stats import add_stats_args, stats_main
+
+    p_stats = sub.add_parser('stats', help='Summarize a telemetry trace captured with --trace / DA4ML_TRACE')
+    add_stats_args(p_stats)
+    p_stats.set_defaults(func=stats_main)
+
+    from .trace_view import add_trace_view_args, trace_view_main
+
+    p_tv = sub.add_parser('trace-view', help='Merge per-process JSONL traces into one Perfetto fleet timeline')
+    add_trace_view_args(p_tv)
+    p_tv.set_defaults(func=trace_view_main)
+
+    from .monitor import add_monitor_args, monitor_main
+
+    p_mon = sub.add_parser('monitor', help='Serve the live /metrics /healthz /statusz observability endpoints')
+    add_monitor_args(p_mon)
+    p_mon.set_defaults(func=monitor_main)
 
     args = parser.parse_args(argv)
     try:

@@ -32,7 +32,6 @@ _UNPORTED = (
     ('deadline', None, '--deadline needs the reliability layer', 10),
     ('fallback', None, '--fallback needs the reliability layer', 10),
     ('resume', None, '--resume needs the reliability layer', 10),
-    ('trace', None, '--trace needs the telemetry layer', 9),
     ('warmup', False, "--warmup needs the device search's warm-up (the reference's `warmup` subcommand)", 12),
     ('warmup_max_dim', 64, "--warmup-max-dim needs the device search's warm-up (the reference's `warmup` subcommand)", 12),
 )
@@ -253,6 +252,23 @@ def convert_main(args: argparse.Namespace) -> int:
         if getattr(args, dest) != default:
             raise UsageError(f'{what}, which is not ported yet (ROADMAP Queue 1, item {item})')
     device = cli_device(args.device)
+    from .. import telemetry
+
+    if args.trace:
+        # one sink for the whole conversion; closed (and flushed to disk)
+        # before the command returns so the file is complete even when a
+        # later step in the same process runs more solves
+        telemetry.enable(args.trace)
+    try:
+        with telemetry.span('cli.convert', model=str(args.model), flavor=args.flavor):
+            _convert(args, device)
+    finally:
+        if args.trace:
+            telemetry.disable()
+    return 0
+
+
+def _convert(args: argparse.Namespace, device: str) -> None:
     convert(
         args.model,
         args.outdir,
@@ -274,7 +290,6 @@ def convert_main(args: argparse.Namespace) -> int:
         quality=args.quality,
         device=device,
     )
-    return 0
 
 
 def add_convert_args(parser: argparse.ArgumentParser):
@@ -331,6 +346,13 @@ def add_convert_args(parser: argparse.ArgumentParser):
     parser.add_argument('--deadline', type=float, default=None, help='Not ported yet (ROADMAP Queue 1, item 10): exits 2')
     parser.add_argument('--fallback', type=str, default=None, help='Not ported yet (ROADMAP Queue 1, item 10): exits 2')
     parser.add_argument('--resume', type=Path, default=None, help='Not ported yet (ROADMAP Queue 1, item 10): exits 2')
-    parser.add_argument('--trace', type=Path, default=None, help='Not ported yet (ROADMAP Queue 1, item 9): exits 2')
+    parser.add_argument(
+        '--trace',
+        type=Path,
+        default=None,
+        help='Capture a telemetry trace of the conversion to this path: Chrome trace-event JSON '
+        '(open in Perfetto / chrome://tracing), or a streaming JSONL event log when the path '
+        'ends in .jsonl. Summarize with `da4ml-tpu-torch stats <path>`. Equivalent to DA4ML_TRACE=<path>.',
+    )
     parser.add_argument('--warmup', action='store_true', help='Not ported yet (ROADMAP Queue 1, item 12): exits 2')
     parser.add_argument('--warmup-max-dim', type=int, default=64, help='Not ported yet (ROADMAP Queue 1, item 12): exits 2')

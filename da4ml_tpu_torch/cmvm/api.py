@@ -4,7 +4,8 @@
 n_in))] and keeps the cheapest result; ``n_workers`` spreads that sweep over
 host worker processes.
 
-Counterpart of ``da4ml_tpu/cmvm/api.py`` (``_solve_dispatch_impl``):
+Counterpart of ``da4ml_tpu/cmvm/api.py`` (``_solve_dispatch_impl``, here
+``_solve_dispatch``):
 
 - ``backend='cpu'`` runs the Python host loop below;
 - ``backend='cpp'`` runs the native C++ solver (``native.solve_native``,
@@ -24,6 +25,7 @@ beam and restart lanes are dropped, and one warning per backend says so.
 from __future__ import annotations
 
 import os
+import time
 import warnings
 from concurrent.futures import ProcessPoolExecutor
 from math import ceil, inf, log2
@@ -31,6 +33,7 @@ from math import ceil, inf, log2
 import numpy as np
 from numpy.typing import NDArray
 
+from .. import telemetry
 from ..ir.comb import CombLogic, Pipeline
 from ..ir.types import QInterval
 from .core import solve_single, to_solution
@@ -151,7 +154,9 @@ def _solve(
 
 
 def _solve_task(args) -> Pipeline:
-    return _solve(*args)
+    # args[4] is the decompose depth of this sweep candidate (see tasks below)
+    with telemetry.span('cmvm.solve_dc', dc=args[4], method0=args[1]):
+        return _solve(*args)
 
 
 def _pipeline_cost(p: Pipeline) -> float:
@@ -173,7 +178,9 @@ def solve(
     n_workers: int = 0,
     method0_candidates: list[str] | None = None,
     n_restarts: int = 1,
-    quality=None,
+    mesh=None,
+    *,
+    quality='fast',
     device=None,
 ) -> Pipeline:
     """Full CMVM solve with an optional sweep over all decompose depths.
@@ -190,13 +197,38 @@ def solve(
     then); the result is the same as the sequential sweep's. On ``'cpp'`` it
     is the native solver's thread count. ``'auto'`` is ``'cpp'`` when the
     native library builds, else ``'cpu'``.
+
+    The parameters bind positionally as the reference's do
+    (``da4ml_tpu/cmvm/api.py``): ``mesh`` is the fifteenth, and must be None
+    (the multi-device search is not ported); ``quality`` and the port's
+    ``device`` are keyword-only.
+
+    Telemetry: each call is one ``cmvm.solve`` span and one
+    ``solve.duration_s`` / ``solve.adders`` sample when telemetry is enabled
+    (``DA4ML_TRACE`` or ``telemetry.enable()``).
     """
-    return _post_solve_verify(
-        _solve_dispatch(
-            kernel, method0, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
-            search_all_decompose_dc, backend, n_workers, method0_candidates, n_restarts, quality, device,
-        )
-    )  # fmt: skip
+    if mesh is not None:
+        raise NotImplementedError('mesh: the multi-device search is not ported')
+    kernel = np.asarray(kernel, dtype=np.float64)
+    if kernel.ndim != 2 or kernel.shape[0] == 0 or kernel.shape[1] == 0:
+        raise ValueError(f'kernel must be a non-empty 2D matrix, got shape {kernel.shape}')
+    _metrics = telemetry.metrics_on()
+    _t0 = time.perf_counter() if _metrics else 0.0
+    with telemetry.span('cmvm.solve', backend=backend, shape=f'{kernel.shape[0]}x{kernel.shape[1]}') as _sp:
+        result = _post_solve_verify(
+            _solve_dispatch(
+                kernel, method0, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
+                search_all_decompose_dc, backend, n_workers, method0_candidates, n_restarts, quality, device,
+            )
+        )  # fmt: skip
+        if _metrics:
+            telemetry.counter('solve.calls').inc()
+            telemetry.histogram('solve.duration_s').observe(time.perf_counter() - _t0)
+            # adder counts are 1..1e6-scale: the count ladder, not seconds
+            telemetry.histogram('solve.adders', telemetry.COUNT_BUCKETS).observe(float(result.cost))
+        if _sp:
+            _sp.set(cost=float(result.cost))
+        return result
 
 
 def _post_solve_verify(result: Pipeline) -> Pipeline:
@@ -212,94 +244,93 @@ def _solve_dispatch(
     kernel, method0, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
     search_all_decompose_dc, backend, n_workers, method0_candidates, n_restarts, quality, device,
 ) -> Pipeline:  # fmt: skip
-    """``solve`` on the chosen backend, before the post-solve hook."""
-    kernel = np.asarray(kernel, dtype=np.float64)
-    if kernel.ndim != 2 or kernel.shape[0] == 0 or kernel.shape[1] == 0:
-        raise ValueError(f'kernel must be a non-empty 2D matrix, got shape {kernel.shape}')
-    if backend not in BACKENDS:
-        raise ValueError(f'backend {backend!r} is not ported to da4ml_tpu_torch (ported: {BACKENDS})')
-    qintervals, latencies = _default_qint_lat(kernel, qintervals, latencies)
+    """``solve`` on the chosen backend, before the post-solve hook; ``kernel``
+    is the float64 matrix that ``solve`` checked."""
+    with telemetry.span('cmvm.dispatch', backend=backend, shape='x'.join(map(str, kernel.shape))):
+        if backend not in BACKENDS:
+            raise ValueError(f'backend {backend!r} is not ported to da4ml_tpu_torch (ported: {BACKENDS})')
+        qintervals, latencies = _default_qint_lat(kernel, qintervals, latencies)
 
-    if backend == 'auto':  # the fastest host path, as in the reference
-        from ..native import has_solver
+        if backend == 'auto':  # the fastest host path, as in the reference
+            from ..native import has_solver
 
-        backend = 'cpp' if has_solver() else 'cpu'
+            backend = 'cpp' if has_solver() else 'cpu'
 
-    if backend == 'torch':
-        from .torch_search import solve_torch
+        if backend == 'torch':
+            from .torch_search import solve_torch
 
-        return solve_torch(
-            kernel,
-            method0=method0,
-            method1=method1,
-            hard_dc=hard_dc,
-            decompose_dc=decompose_dc,
-            qintervals=qintervals,
-            latencies=latencies,
-            adder_size=adder_size,
-            carry_size=carry_size,
-            search_all_decompose_dc=search_all_decompose_dc,
-            method0_candidates=method0_candidates,
-            n_restarts=n_restarts,
-            quality=quality,
-            device=device,
-        )
-    if quality not in (None, 'fast'):
-        from .search.spec import resolve_quality
+            return solve_torch(
+                kernel,
+                method0=method0,
+                method1=method1,
+                hard_dc=hard_dc,
+                decompose_dc=decompose_dc,
+                qintervals=qintervals,
+                latencies=latencies,
+                adder_size=adder_size,
+                carry_size=carry_size,
+                search_all_decompose_dc=search_all_decompose_dc,
+                method0_candidates=method0_candidates,
+                n_restarts=n_restarts,
+                quality=quality,
+                device=device,
+            )
+        if quality not in (None, 'fast'):
+            from .search.spec import resolve_quality
 
-        spec = resolve_quality(quality)
-        if not spec.is_fast:
-            warn_once(f'cmvm.quality.{backend}', f'quality beam search runs on the torch backend only; degrading to a '
-                      f'portfolio sweep on backend {backend!r} (beam/restart lanes dropped)')  # fmt: skip
-            method0_candidates = list(dict.fromkeys([*(method0_candidates or [method0]), *spec.portfolio]))
-        quality = None
-    if n_restarts and int(n_restarts) > 1:  # the restart axis is a device-lane feature, as in the reference
-        warnings.warn(f'n_restarts={n_restarts} requires the torch backend; restart lanes are not run on backend '
-                      f'{backend!r}', stacklevel=3)  # fmt: skip
-    if method0_candidates:
-        sols = [
-            _solve_dispatch(kernel, mc, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
-                            search_all_decompose_dc, backend, n_workers, None, 1, quality, device)
-            for mc in dict.fromkeys(method0_candidates)
-        ]  # fmt: skip
-        return min(sols, key=lambda s: s.cost)
+            spec = resolve_quality(quality)
+            if not spec.is_fast:
+                warn_once(f'cmvm.quality.{backend}', f'quality beam search runs on the torch backend only; degrading to a '
+                          f'portfolio sweep on backend {backend!r} (beam/restart lanes dropped)')  # fmt: skip
+                method0_candidates = list(dict.fromkeys([*(method0_candidates or [method0]), *spec.portfolio]))
+            quality = None
+        if n_restarts and int(n_restarts) > 1:  # the restart axis is a device-lane feature, as in the reference
+            warnings.warn(f'n_restarts={n_restarts} requires the torch backend; restart lanes are not run on backend '
+                          f'{backend!r}', stacklevel=3)  # fmt: skip
+        if method0_candidates:
+            sols = [
+                _solve_dispatch(kernel, mc, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size,
+                                search_all_decompose_dc, backend, n_workers, None, 1, quality, device)
+                for mc in dict.fromkeys(method0_candidates)
+            ]  # fmt: skip
+            return min(sols, key=lambda s: s.cost)
 
-    if backend == 'cpp':
-        from ..native import solve_native
+        if backend == 'cpp':
+            from ..native import solve_native
 
-        return solve_native(
-            kernel,
-            method0=method0,
-            method1=method1,
-            hard_dc=hard_dc,
-            decompose_dc=decompose_dc,
-            qintervals=qintervals,
-            latencies=latencies,
-            adder_size=adder_size,
-            carry_size=carry_size,
-            search_all_decompose_dc=search_all_decompose_dc,
-            n_threads=n_workers,
-        )
+            return solve_native(
+                kernel,
+                method0=method0,
+                method1=method1,
+                hard_dc=hard_dc,
+                decompose_dc=decompose_dc,
+                qintervals=qintervals,
+                latencies=latencies,
+                adder_size=adder_size,
+                carry_size=carry_size,
+                search_all_decompose_dc=search_all_decompose_dc,
+                n_threads=n_workers,
+            )
 
-    if not search_all_decompose_dc:
-        return _solve(kernel, method0, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size)
+        if not search_all_decompose_dc:
+            return _solve(kernel, method0, method1, hard_dc, decompose_dc, qintervals, latencies, adder_size, carry_size)
 
-    _hard_dc = hard_dc if hard_dc >= 0 else 10**9
-    n_in = kernel.shape[0]
-    max_dc = min(_hard_dc, int(ceil(log2(n_in))))
-    try_dcs = list(range(-1, max_dc + 1))
+        _hard_dc = hard_dc if hard_dc >= 0 else 10**9
+        n_in = kernel.shape[0]
+        max_dc = min(_hard_dc, int(ceil(log2(n_in))))
+        try_dcs = list(range(-1, max_dc + 1))
 
-    tasks = [(kernel, method0, method1, _hard_dc, dc, qintervals, latencies, adder_size, carry_size) for dc in try_dcs]
+        tasks = [(kernel, method0, method1, _hard_dc, dc, qintervals, latencies, adder_size, carry_size) for dc in try_dcs]
 
-    if n_workers <= 1 or len(try_dcs) == 1:
-        candidates = [_solve_task(t) for t in tasks]
-    else:
-        import multiprocessing as mp
+        if n_workers <= 1 or len(try_dcs) == 1:
+            candidates = [_solve_task(t) for t in tasks]
+        else:
+            import multiprocessing as mp
 
-        ctx = mp.get_context('spawn')
-        workers = min(n_workers, len(try_dcs), os.cpu_count() or 1)
-        with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
-            candidates = list(ex.map(_solve_task, tasks))
+            ctx = mp.get_context('spawn')
+            workers = min(n_workers, len(try_dcs), os.cpu_count() or 1)
+            with ProcessPoolExecutor(max_workers=workers, mp_context=ctx) as ex:
+                candidates = list(ex.map(_solve_task, tasks))
 
-    costs = [_pipeline_cost(c) for c in candidates]
-    return candidates[int(np.argmin(costs))]
+        costs = [_pipeline_cost(c) for c in candidates]
+        return candidates[int(np.argmin(costs))]

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ... import telemetry
 from ..heuristics import top_candidates
 from ..state import DAState, create_state, to_shift, to_sign, update_state
 from .ranker import _Child, candidate_features, get_ranker, tail_estimate
@@ -71,7 +72,7 @@ def _expand_one(lane, spec: SearchSpec, ranker, adder_size: int, carry_size: int
     """Beam-expand one stage-0 lane; returns [(LanePrefix, trace_meta), ...]
     — one entry per surviving fork trajectory (the unforked base lane is NOT
     among them; it stays in the batch unchanged)."""
-    from ..torch_search import search_stats
+    from ..torch_search import count_search
 
     mat = np.ascontiguousarray(lane.kernel if lane.perm is None else lane.kernel[lane.perm], dtype=np.float64)
     ni = mat.shape[0]
@@ -83,31 +84,32 @@ def _expand_one(lane, spec: SearchSpec, ranker, adder_size: int, carry_size: int
     # frontier entries: (state, cost_so_far, trace meta per committed step)
     frontier: list[tuple[DAState, float, list[dict]]] = [(root, base_cost, [])]
     for t in range(spec.depth):
-        children: list[_Child] = []
-        taken: dict[tuple, int] = {}
-        order = 0
-        for st, cost_so_far, meta in frontier:
-            cands = top_candidates(st, lane.method, spec.beam)
-            if not cands:
-                # drained trajectory: carry it through pruning unchanged
-                feats = candidate_features(0, 0, 0, spec.depth - t, 0.0)
-                children.append(_Child(st, feats, cost_so_far, tail_estimate(st), order, {'meta': meta}))
-                order += 1
-                continue
-            for rank, (pair, cnt, _score, n_ov, dlat) in enumerate(cands):
-                seen = taken.get(pair, 0)
-                taken[pair] = seen + 1
-                child = _clone_state(st)
-                update_state(child, pair, adder_size, carry_size)
-                d_cost = float(child.ops[-1].cost)
-                feats = candidate_features(cnt, n_ov, dlat, spec.depth - t, 1.0 / (1.0 + seen))
-                step = {'features': [float(v) for v in feats], 'chosen': rank == 0, 'step': t}
-                children.append(_Child(child, feats, cost_so_far + d_cost, tail_estimate(child), order, {'meta': meta + [step]}))
-                order += 1
-        scores = ranker.scores(children)
-        keep = sorted(range(len(children)), key=lambda i: (-scores[i], children[i].order))[: spec.beam]
-        search_stats['frontier_culled'] += len(children) - len(keep)
-        frontier = [(children[i].state, children[i].cost_so_far, children[i].meta['meta']) for i in keep]
+        with telemetry.span('cmvm.search.rung', step=t, frontier=len(frontier)):
+            children: list[_Child] = []
+            taken: dict[tuple, int] = {}
+            order = 0
+            for st, cost_so_far, meta in frontier:
+                cands = top_candidates(st, lane.method, spec.beam)
+                if not cands:
+                    # drained trajectory: carry it through pruning unchanged
+                    feats = candidate_features(0, 0, 0, spec.depth - t, 0.0)
+                    children.append(_Child(st, feats, cost_so_far, tail_estimate(st), order, {'meta': meta}))
+                    order += 1
+                    continue
+                for rank, (pair, cnt, _score, n_ov, dlat) in enumerate(cands):
+                    seen = taken.get(pair, 0)
+                    taken[pair] = seen + 1
+                    child = _clone_state(st)
+                    update_state(child, pair, adder_size, carry_size)
+                    d_cost = float(child.ops[-1].cost)
+                    feats = candidate_features(cnt, n_ov, dlat, spec.depth - t, 1.0 / (1.0 + seen))
+                    step = {'features': [float(v) for v in feats], 'chosen': rank == 0, 'step': t}
+                    children.append(_Child(child, feats, cost_so_far + d_cost, tail_estimate(child), order, {'meta': meta + [step]}))
+                    order += 1
+            scores = ranker.scores(children)
+            keep = sorted(range(len(children)), key=lambda i: (-scores[i], children[i].order))[: spec.beam]
+            count_search(frontier_culled=len(children) - len(keep))
+            frontier = [(children[i].state, children[i].cost_so_far, children[i].meta['meta']) for i in keep]
 
     out = []
     for st, _cost, meta in frontier:
@@ -177,7 +179,7 @@ def expand_beam_lanes(lanes, spec: SearchSpec, adder_size: int, carry_size: int)
     """
     from ..torch_search import _Lane
 
-    from ..torch_search import search_stats
+    from ..torch_search import count_search
 
     ranker = get_ranker(spec.ranker)
     memo: dict[tuple, list[tuple]] = {}
@@ -201,6 +203,5 @@ def expand_beam_lanes(lanes, spec: SearchSpec, adder_size: int, carry_size: int)
             n_expanded += 1
         for pfx, meta in forks:
             out.append((idx, _Lane(lane.kernel, lane.qintervals, lane.latencies, lane.method, perm=lane.perm, prefix=pfx), meta))
-    search_stats['lanes_expanded'] += n_expanded
-    search_stats['fork_lanes'] += len(out)
+    count_search(lanes_expanded=n_expanded, fork_lanes=len(out))
     return out

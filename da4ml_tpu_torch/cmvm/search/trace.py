@@ -25,6 +25,8 @@ import hashlib
 import json
 import os
 
+from ... import telemetry
+
 #: env knob: directory to append solve-trace JSONL files to
 TRACE_DIR_ENV = 'DA4ML_SEARCH_TRACE_DIR'
 
@@ -53,6 +55,7 @@ def export_records(dirpath: str, records: list[dict]) -> str | None:
             for r in records:
                 fh.write(json.dumps(r, sort_keys=True) + '\n')
         os.replace(tmp, path)
+        telemetry.counter('search.trace_records').inc(len(records))
         return path
     except OSError:
         return None

@@ -41,7 +41,9 @@ from math import inf
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..parallel.shapes import canon_dim, next_pow2
+from ..telemetry.obs import profile as _prof
 from . import torch_search as ts
 from .search.beam import replay_fork_prefix
 from .search.ranker import get_ranker
@@ -307,13 +309,21 @@ def _device_beam_expand(lanes: list, spec, adder_size: int, carry_size: int, dev
                     for k in range(K):
                         c = x * Cn + f * K + k
                         sel[c], rank[c], cur[c], meth[c], cost[c] = src_pos[(x, f)], k, fr['cur'], mcode_g[x], fr['cost']
-            sel_t = torch.as_tensor(sel, device=dev)
-            gE, gq, gl = (t_[sel_t] for t_ in src)  # the fan-out: one gather per state tensor
-            outs = _fork_chunked(gE, gq, gl, *(torch.as_tensor(a, device=dev) for a in (cur, meth, rank, cost)), fspec)
+            with _prof.annotate('cmvm.fork.fanout'):
+                sel_t = torch.as_tensor(sel, device=dev)
+                gE, gq, gl = (t_[sel_t] for t_ in src)  # the fan-out: one gather per state tensor
+            with _prof.annotate('cmvm.fork.step'):
+                outs = _fork_chunked(gE, gq, gl, *(torch.as_tensor(a, device=dev) for a in (cur, meth, rank, cost)),
+                                     fspec)  # fmt: skip
             Ep2, q2, l2, _, rec_d, stats_d = outs
-            sel_k = prune(stats_d.view(G, Cn, 8), rec_d.view(G, Cn, 4), float(depth - t), w_eff, b_eff, kind, K)
+            with _prof.annotate('cmvm.fork.prune'):
+                sel_k = prune(stats_d.view(G, Cn, 8), rec_d.view(G, Cn, 4), float(depth - t), w_eff, b_eff, kind, K)
             # the host sees only the decisions: records, stats, selections
-            h_rec, h_stats, h_sel = rec_d.cpu().numpy(), stats_d.cpu().numpy(), sel_k.cpu().numpy()
+            with _prof.annotate('cmvm.fork.fetch'):
+                h_rec, h_stats, h_sel = rec_d.cpu().numpy(), stats_d.cpu().numpy(), sel_k.cpu().numpy()
+            if telemetry.metrics_on():
+                telemetry.counter('sched.upload_bytes').inc(sum(int(a.nbytes) for a in (sel, rank, cur, meth, cost)))
+                telemetry.counter('sched.fetch_bytes').inc(int(h_rec.nbytes + h_stats.nbytes + h_sel.nbytes))
 
             new_frontier: list[list[dict | None]] = []
             new_pos: dict[tuple, int] = {}
@@ -378,12 +388,8 @@ def _device_beam_expand(lanes: list, spec, adder_size: int, carry_size: int, dev
         for pfx, meta in by_uniq.get(uniq[key], []):
             out.append((idx, ts._Lane(lane.kernel, lane.qintervals, lane.latencies, lane.method, perm=lane.perm,
                                       prefix=pfx), meta))  # fmt: skip
-    st = ts.search_stats
-    st['lanes_expanded'] += len(lane_rep)
-    st['fork_lanes'] += len(out)
-    st['device_forks'] += n_forks_dev
-    st['device_prunes'] += n_prunes
-    st['frontier_culled'] += n_prunes
+    ts.count_search(lanes_expanded=len(lane_rep), fork_lanes=len(out), device_forks=n_forks_dev,
+                    device_prunes=n_prunes, frontier_culled=n_prunes)  # fmt: skip
     return out
 
 
@@ -391,4 +397,5 @@ def _expand_forks(lanes_sub: list, spec, adder_size: int, carry_size: int, devic
     """Beam expansion of a stage-0 batch: the device beam on ``device``.
     There is no host fallback: the host beam (``search.beam``) is its
     parity oracle only."""
-    return _device_beam_expand(lanes_sub, spec, adder_size, carry_size, device=device)
+    with telemetry.span('cmvm.jax.fork', n_lanes=len(lanes_sub), beam=spec.beam, depth=spec.depth):
+        return _device_beam_expand(lanes_sub, spec, adder_size, carry_size, device=device)

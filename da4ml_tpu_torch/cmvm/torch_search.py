@@ -49,16 +49,24 @@ Left out against the reference: the ``xla`` select, the device-resident
 rung transitions and decision replay (the resident rung ladder: the
 reference's ``_transition_jit``, ``_replay_digits``, ``_fork_seed_jit`` and
 the ``park_roots``/``entry_carry`` hand-offs), prewarm, asynchronous
-emission, meshes and multi-process code, telemetry (its ``search.*``
-counters are keys of :data:`search_stats`), and every environment knob but
+emission, meshes and multi-process code, and every environment knob but
 the trace export's ``DA4ML_SEARCH_TRACE_DIR`` (their reference defaults are
 the constants below).
+
+Telemetry: the reference's spans (``cmvm.jax.solve_many``, ``.decompose``,
+``.stage0``/``.stage1``, ``.csd``, ``.emit`` — the reference's names, so
+traces of both packages compare) and its ``sched.*``, ``search.*`` and
+``cse.*`` metrics, at their counterparts here; each K2 launch runs inside
+``telemetry.obs.profile.annotate('cmvm.rung')``. The ``search.*`` counts
+go through :func:`count_search`, which also keeps them in
+:data:`search_stats`, read without telemetry.
 """
 
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass
-from functools import lru_cache
+from functools import lru_cache, wraps
 from math import ceil, inf, log2
 
 import numpy as np
@@ -66,11 +74,13 @@ import torch
 import torch.nn.functional as F
 from numpy.typing import NDArray
 
+from .. import telemetry
 from ..ir.comb import CombLogic, Pipeline
 from ..ir.types import Op, QInterval, qint_add
 from .. import native
 from ..parallel.shapes import canon_dim, next_pow2
 from ..runtime.torch_backend import resolve_device
+from ..telemetry.obs import profile as _prof
 from . import api as _host_api
 from .core import solve_single, to_solution
 from .cost import cost_add
@@ -98,6 +108,15 @@ DEVICE_BUDGET = 4 << 30
 search_stats = {'over_budget_accepts': 0, 'pmax_host_fallbacks': 0, 'beam_width': 0, 'lanes_expanded': 0,
                 'fork_lanes': 0, 'frontier_culled': 0, 'device_forks': 0, 'device_prunes': 0, 'strict_wins': 0,
                 'ties': 0, 'host_rescues': 0}  # fmt: skip
+
+
+def count_search(**counts: int) -> None:
+    """Add each count to :data:`search_stats` and to the ``search.<name>``
+    counter of the same name."""
+    for name, n in counts.items():
+        search_stats[name] += n
+        telemetry.counter(f'search.{name}').inc(n)
+
 
 _SP_FIN = -3.0e38  # finite stand-in for -inf in the cache merge's order
 
@@ -753,9 +772,10 @@ def solve_single_lanes(lanes: list[_Lane], adder_size: int, carry_size: int, dev
       materializes either kind).
     """
     dev = resolve_device(device)
-    for lane in lanes:
-        if lane.csd is None:
-            _prepare_lane(lane)
+    with telemetry.span('cmvm.jax.csd', n_lanes=len(lanes)):
+        for lane in lanes:
+            if lane.csd is None:
+                _prepare_lane(lane)
 
     results: dict = {}  # CombLogic, or RawComb from native emission
     dup_of: dict[int, int] = {}
@@ -766,6 +786,8 @@ def solve_single_lanes(lanes: list[_Lane], adder_size: int, carry_size: int, dev
             dup_of[k] = uniq[key]
         else:
             uniq[key] = k
+    if dup_of:
+        telemetry.counter('sched.dedup_lanes').inc(len(dup_of))
 
     memo: dict[tuple, CombLogic] = {}
     for k, ln in enumerate(lanes):
@@ -786,6 +808,8 @@ def solve_single_lanes(lanes: list[_Lane], adder_size: int, carry_size: int, dev
     for k in active:
         gk = (canon_dim(lanes[k].csd.shape[1], 8), canon_dim(lanes[k].csd.shape[2], 2))
         groups.setdefault(gk, []).append(k)
+    telemetry.counter('sched.bucket_groups').inc(len(groups))
+    telemetry.counter('sched.bucket_lanes').inc(len(active))
     for (O, B), g_active in sorted(groups.items(), key=lambda it: (it[0][0] * it[0][1] ** 2, it[0]), reverse=True):
         emit_jobs, net = _run_group(lanes, O, B, g_active, adder_size, carry_size, dev, memo)
         results.update(net)
@@ -848,6 +872,8 @@ def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_
         hE.append(E)
         hq.append(q)
         hl.append(lb)
+    if has_prefix and telemetry.metrics_on():
+        telemetry.counter('search.host_seeded_lanes').inc(sum(lanes[k].prefix is not None for k in active))
 
     net: dict[int, CombLogic] = {}
     pend = list(range(n_act))
@@ -861,6 +887,7 @@ def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_
                 for a in pend:
                     net[active[a]] = _host_lane(lanes[active[a]], adder_size, carry_size, memo)
                 break
+        telemetry.counter('sched.rungs').inc()
         spec = _resolve_rung_class(P, O, B, adder_size, carry_size, next_pow2(cur_max), full_rec=has_prefix)
         per_lane = _rung_bytes_per_lane(spec)
         max_lanes = max(1, DEVICE_BUDGET // per_lane)
@@ -885,13 +912,30 @@ def _run_group(lanes, O: int, B: int, active: list[int], adder_size: int, carry_
                 rows = min(hE[a].shape[0], P)
                 cE[x, :rows], cq[x, :rows], cl[x, :rows] = hE[a][:rows], hq[a][:rows], hl[a][:rows]
                 cc[x], cm[x] = st_cur[a], mcodes[a]
-            oE, oq, ol, o_rec, ocur = cse_rung(cE, cq, cl, cc, cm, spec, dev)
-            cur_f = ocur.cpu().numpy().astype(np.int64)
-            op_rec = o_rec.cpu().numpy()
-            E_all = oE.cpu().numpy()
-            resume = bool((cur_f[: len(chunk)] >= P).any())
-            q_all = oq.cpu().numpy() if resume else None
-            l_all = ol.cpu().numpy() if resume else None
+            timed = telemetry.metrics_on()
+            t0 = time.perf_counter() if timed else 0.0
+            # the rung's K2 launch and the fetch that waits for it
+            with _prof.annotate('cmvm.rung'):
+                oE, oq, ol, o_rec, ocur = cse_rung(cE, cq, cl, cc, cm, spec, dev)
+                cur_f = ocur.cpu().numpy().astype(np.int64)
+                op_rec = o_rec.cpu().numpy()
+                E_all = oE.cpu().numpy()
+                resume = bool((cur_f[: len(chunk)] >= P).any())
+                q_all = oq.cpu().numpy() if resume else None
+                l_all = ol.cpu().numpy() if resume else None
+            if timed:
+                # the rung call's device wall clock (dispatch to fetch), the
+                # bytes it uploaded, kept on the device and fetched, and the
+                # substitutions it committed
+                telemetry.counter('cse.device_rounds').inc()
+                telemetry.histogram('sched.device_s').observe(time.perf_counter() - t0)
+                up = sum(int(t.nbytes) for t in (cE, cq, cl, cc, cm))
+                held = sum(int(t.numel() * t.element_size()) for t in (oE, oq, ol, o_rec, ocur))
+                telemetry.histogram('sched.hbm_bytes', telemetry.BYTES_BUCKETS).observe(up + held)
+                telemetry.counter('sched.upload_bytes').inc(up)
+                fetched = cur_f.nbytes + op_rec.nbytes + E_all.nbytes + (q_all.nbytes + l_all.nbytes if resume else 0)
+                telemetry.counter('sched.fetch_bytes').inc(int(fetched))
+                telemetry.counter('cse.substitutions').inc(int(np.maximum(cur_f[: len(chunk)] - st_cur[chunk], 0).sum()))
             for x, a in enumerate(chunk):
                 c0, c1 = int(st_cur[a]), int(cur_f[x])
                 if c1 > c0:
@@ -942,20 +986,21 @@ def _emit_group(lanes, emit_jobs: list, adder_size: int, carry_size: int) -> dic
     """Adder-tree emission of one group's finished lanes: one native
     ``emit_batch`` call (``RawComb`` handles), or per lane
     ``_host_state_from`` + ``to_solution`` without the native library."""
-    out: dict = {}
-    if native.has_emit():
-        lane_tuples = []
+    with telemetry.span('cmvm.jax.emit', n_jobs=len(emit_jobs)):
+        out: dict = {}
+        if native.has_emit():
+            lane_tuples = []
+            for k, E_lane, rec, shift0 in emit_jobs:
+                ln = lanes[k]
+                qints = np.asarray([(q.min, q.max, q.step) for q in ln.qintervals], np.float64).reshape(-1, 3)
+                lane_tuples.append((shift0, ln.shift1, qints, np.asarray(ln.latencies, np.float64), E_lane, rec))
+            for (k, _, _, _), sol in zip(emit_jobs, native.emit_batch(lane_tuples, adder_size, carry_size)):
+                out[k] = sol
+            return out
         for k, E_lane, rec, shift0 in emit_jobs:
-            ln = lanes[k]
-            qints = np.asarray([(q.min, q.max, q.step) for q in ln.qintervals], np.float64).reshape(-1, 3)
-            lane_tuples.append((shift0, ln.shift1, qints, np.asarray(ln.latencies, np.float64), E_lane, rec))
-        for (k, _, _, _), sol in zip(emit_jobs, native.emit_batch(lane_tuples, adder_size, carry_size)):
-            out[k] = sol
+            state = _host_state_from(lanes[k], rec, E_lane, len(rec), adder_size, carry_size, shift0=shift0)
+            out[k] = to_solution(state, adder_size, carry_size)
         return out
-    for k, E_lane, rec, shift0 in emit_jobs:
-        state = _host_state_from(lanes[k], rec, E_lane, len(rec), adder_size, carry_size, shift0=shift0)
-        out[k] = to_solution(state, adder_size, carry_size)
-    return out
 
 
 # --------------------------------------------------------------------------
@@ -994,6 +1039,7 @@ def solve_torch(
     n_restarts: int = 1,
     mesh=None,
     quality=None,
+    *,
     device=None,
 ) -> Pipeline:
     """Drop-in ``solve`` with the candidate search on the device (the card
@@ -1017,6 +1063,18 @@ def solve_torch(
     )[0]
 
 
+def _solve_many_span(fn):
+    """Run a batched solve inside the reference's ``cmvm.jax.solve_many`` span."""
+
+    @wraps(fn)
+    def wrapped(kernels, *args, **kwargs):
+        with telemetry.span('cmvm.jax.solve_many', n_matrices=len(kernels)):
+            return fn(kernels, *args, **kwargs)
+
+    return wrapped
+
+
+@_solve_many_span
 def solve_torch_many(
     kernels: list[NDArray],
     method0: str = 'wmc',
@@ -1028,11 +1086,12 @@ def solve_torch_many(
     adder_size: int = -1,
     carry_size: int = -1,
     search_all_decompose_dc: bool = True,
+    mesh=None,
     method0_candidates: list[str] | None = None,
     n_restarts: int = 1,
     include_host: bool = False,
-    mesh=None,
     quality=None,
+    *,
     device=None,
 ) -> list[Pipeline]:
     """Batched CMVM solve: all (matrix × dc candidate) stage-0 searches run
@@ -1058,6 +1117,10 @@ def solve_torch_many(
       stage-0/stage-1 batches. Every fork carries its own stage-1 solve; the
       unforked lanes stay in the batch, so the result is never worse than
       ``quality='fast'``, which (like None) is today's path byte for byte.
+
+    The parameters bind positionally as the reference's
+    ``_solve_jax_many_impl`` does; ``mesh`` must be None (the multi-device
+    search is not ported), and the port's ``device`` is keyword-only.
     """
     if mesh is not None:
         raise NotImplementedError('mesh: the multi-device search is not ported')
@@ -1076,6 +1139,7 @@ def solve_torch_many(
         n_restarts = max(int(n_restarts or 1), spec.n_restarts)
         include_host = include_host or spec.include_host
         search_stats['beam_width'] = spec.beam
+        telemetry.gauge('search.beam_width').set(spec.beam)
 
     kernels = [np.asarray(k, dtype=np.float64) for k in kernels]
     n_mat = len(kernels)
@@ -1116,10 +1180,11 @@ def solve_torch_many(
     uniq_md: dict[tuple[int, int], int] = {}
     for mi, dc, _, _ in jobs:
         uniq_md.setdefault((mi, dc), len(uniq_md))
-    if native.has_emit():
-        splits = native.decompose_batch([kernels[mi] for mi, _ in uniq_md], [dc for _, dc in uniq_md])
-    else:
-        splits = [kernel_decompose(kernels[mi], dc) for mi, dc in uniq_md]
+    with telemetry.span('cmvm.jax.decompose', n_unique=len(uniq_md)):
+        if native.has_emit():
+            splits = native.decompose_batch([kernels[mi] for mi, _ in uniq_md], [dc for _, dc in uniq_md])
+        else:
+            splits = [kernel_decompose(kernels[mi], dc) for mi, dc in uniq_md]
 
     lanes0: list[_Lane] = []
     mats1: list[NDArray] = []
@@ -1139,7 +1204,8 @@ def solve_torch_many(
             _Lane(mats1[ji], list(s0.out_qint), list(s0.out_latency), _lane_method(mpairs[jobs[ji][2]][1], jobs[ji][1], hard_eff))
             for ji, s0 in zip(refs, sols0)
         ]  # fmt: skip
-        return solve_single_lanes(lanes1, adder_size, carry_size, device=dev)
+        with telemetry.span('cmvm.jax.stage1', n_lanes=len(lanes1)):
+            return solve_single_lanes(lanes1, adder_size, carry_size, device=dev)
 
     # beam forks: decision prefixes as extra stage-0 lanes. exp_refs maps
     # every stage-0 lane to its job; slot 0 is the unforked lane, slots > 0
@@ -1159,7 +1225,8 @@ def solve_torch_many(
 
     # both stages keep native solutions as RawComb handles: only the argmin's
     # winners become CombLogics
-    sols0 = solve_single_lanes(lanes0, adder_size, carry_size, device=dev)
+    with telemetry.span('cmvm.jax.stage0', n_lanes=len(lanes0)):
+        sols0 = solve_single_lanes(lanes0, adder_size, carry_size, device=dev)
     sols1 = _stage1(exp_refs, sols0)
 
     if two_phase:
@@ -1178,7 +1245,8 @@ def solve_torch_many(
                 exp_refs.append(focus_idx[si])
                 slot_ids.append(slot)
                 fork_meta.append(meta)
-            sols0_f = solve_single_lanes([fln for _, fln, _ in forks], adder_size, carry_size, device=dev)
+            with telemetry.span('cmvm.jax.stage0', n_lanes=len(forks)):
+                sols0_f = solve_single_lanes([fln for _, fln, _ in forks], adder_size, carry_size, device=dev)
             sols0 = list(sols0) + list(sols0_f)
             sols1 = list(sols1) + list(_stage1(exp_refs[len(jobs) :], sols0_f))
     exp_jobs = [jobs[ji] for ji in exp_refs]
@@ -1234,6 +1302,7 @@ def solve_torch_many(
             _strace.export_records(tdir, _strace.solve_records(kernels, exp_jobs, slot_ids, fork_meta, totals, base_totals))
 
     if include_host:
+        n_win = n_tie = n_rescue = 0
         for mi in range(n_mat):
             host = _host_api.solve(
                 kernels[mi], method0=method0, method1=method1, hard_dc=hard_dc, decompose_dc=decompose_dc,
@@ -1243,7 +1312,8 @@ def solve_torch_many(
             )  # fmt: skip
             dcost, hcost = float(results[mi].cost), float(host.cost)
             # device lanes strictly beating the host solver, tying, or rescued by it
-            search_stats['strict_wins' if dcost < hcost else 'ties' if dcost == hcost else 'host_rescues'] += 1
+            n_win, n_tie, n_rescue = n_win + (dcost < hcost), n_tie + (dcost == hcost), n_rescue + (dcost > hcost)
             if hcost < dcost:
                 results[mi] = host
+        count_search(strict_wins=n_win, ties=n_tie, host_rescues=n_rescue)
     return results

@@ -21,7 +21,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import logging
 import os
 import shutil
 import subprocess
@@ -31,12 +30,13 @@ from pathlib import Path
 import numpy as np
 from numpy.typing import NDArray
 
+from ... import telemetry
 from ...ir.comb import CombLogic, Pipeline
 from ...ir.types import minimal_kif
 from .hls_codegen import emit_hls_kernel
 
 _SRC_DIR = Path(__file__).parent / 'source'
-_logger = logging.getLogger(__name__)
+_logger = telemetry.get_logger('codegen.hls')
 
 
 class HLSModel:
@@ -100,8 +100,8 @@ class HLSModel:
     # ------------------------------------------------------------ emission
 
     def write(self) -> 'HLSModel':
-        _logger.debug('codegen.hls.write %s (%s)', self.name, self.flavor)
-        return self._write()
+        with telemetry.span('codegen.hls.write', name=self.name, flavor=self.flavor):
+            return self._write()
 
     def _write(self) -> 'HLSModel':
         # fail-fast precondition mirroring RTLModel.write: a malformed or

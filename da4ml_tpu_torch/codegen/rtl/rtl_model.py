@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import ctypes
 import json
-import logging
 import os
 import shutil
 import subprocess
@@ -35,13 +34,14 @@ from pathlib import Path
 import numpy as np
 from numpy.typing import NDArray
 
+from ... import telemetry
 from ...ir.comb import CombLogic, Pipeline
 from ...ir.types import minimal_kif
 from ..rtl.verilog.comb import VerilogCombEmitter
 from ..rtl.verilog.io_wrapper import emit_io_wrapper
 from ..rtl.verilog.pipeline import emit_pipeline
 
-_logger = logging.getLogger(__name__)
+_logger = telemetry.get_logger('codegen.rtl')
 
 _SRC_DIR = Path(__file__).parent / 'verilog' / 'source'
 _VHDL_SRC_DIR = Path(__file__).parent / 'vhdl' / 'source'
@@ -175,8 +175,8 @@ class RTLModel:
         return files, metadata
 
     def write(self) -> 'RTLModel':
-        _logger.debug('codegen.rtl.write %s (%s)', self.name, self.flavor)
-        return self._write()
+        with telemetry.span('codegen.rtl.write', name=self.name, flavor=self.flavor):
+            return self._write()
 
     def _write(self) -> 'RTLModel':
         # fail-fast precondition: refuse to emit HDL for a malformed or

@@ -17,11 +17,11 @@ Counterpart of ``da4ml_tpu/converter/__init__.py``.
 
 from __future__ import annotations
 
-import logging
 from importlib import import_module
 from importlib.metadata import entry_points
 from typing import Any
 
+from .. import telemetry
 from ..cmvm import solver_options_t
 from ..trace import FixedVariableArray, HWConfig
 from .plugin import TracerPluginBase, flatten_arrays
@@ -37,7 +37,6 @@ __all__ = [
 
 ENTRY_POINT_GROUP = 'da4ml_tpu_torch.plugins'
 
-_logger = logging.getLogger(__name__)
 
 # name -> plugin class or 'module:attr' lazy spec
 _REGISTRY: dict[str, Any] = {
@@ -106,8 +105,10 @@ def trace_model(
         cls = _resolve(spec)
 
     if verbose:
-        _logger.info(f'Tracing with plugin {cls.__module__}.{cls.__qualname__} (framework={framework})')
+        telemetry.get_logger('converter').info(
+            f'Tracing with plugin {cls.__module__}.{cls.__qualname__} (framework={framework})'
+        )
 
     tracer = cls(model, hwconf, solver_options, **kwargs)
-    _logger.debug('trace.model (framework=%s)', framework)
-    return tracer.trace(verbose=verbose, inputs=inputs, inputs_kif=inputs_kif, dump=dump)
+    with telemetry.span('trace.model', framework=framework):
+        return tracer.trace(verbose=verbose, inputs=inputs, inputs_kif=inputs_kif, dump=dump)

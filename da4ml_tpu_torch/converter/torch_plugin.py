@@ -14,12 +14,12 @@ Counterpart of ``da4ml_tpu/converter/torch_plugin.py``.
 
 from __future__ import annotations
 
-import logging
 import operator
 from typing import Any
 
 import numpy as np
 
+from ..telemetry import get_logger
 from ..trace import FixedVariableArray
 from ..trace.ops import (
     avg_pool1d,
@@ -38,7 +38,7 @@ from ..trace.ops import (
 )
 from .plugin import TracerPluginBase
 
-_logger = logging.getLogger(__name__)
+_logger = get_logger('converter.torch')
 
 
 def _one(v) -> int:

@@ -39,19 +39,18 @@ telemetry spans and counters is logged here.
 
 from __future__ import annotations
 
-import logging
 from typing import NamedTuple, Sequence
 
 import numpy as np
 from numpy.typing import NDArray
 
+from .. import telemetry
 from .comb import CombLogic, Pipeline
 from .dais_binary import DaisProgram, decode
 from .optable import OP_TABLE, OPCODE_TO_SPEC, i32
 from .schedule import levelize_comb
 from .types import Op, QInterval, minimal_kif, qint_add
 
-_logger = logging.getLogger(__name__)
 
 # fusion coverage audit: the rebase
 # logic below is driven by the declarative opcode table's operand-kind fields,
@@ -148,9 +147,12 @@ def fuse_pipeline(pipe: Pipeline, report: bool = False) -> CombLogic | tuple[Com
     stages = pipe.stages
     if not stages:
         raise ValueError('cannot fuse an empty pipeline')
-    fused, rep = _fuse_impl(stages)
-    _logger.debug('fused %d stages: %d -> %d ops (%d seam ops), depth %d -> %d', rep.stages, rep.ops_before,
-                  rep.ops_after, rep.seam_ops, rep.depth_before, rep.depth_after)  # fmt: skip
+    with telemetry.span('ir.fuse', n_stages=len(stages)):
+        fused, rep = _fuse_impl(stages)
+    telemetry.counter('fuse.stages').inc(rep.stages)
+    telemetry.counter('fuse.seam_ops').inc(rep.seam_ops)
+    telemetry.gauge('fuse.depth_before').set(rep.depth_before)
+    telemetry.gauge('fuse.depth_after').set(rep.depth_after)
     return (fused, rep) if report else fused
 
 

@@ -4,6 +4,8 @@
 (``_trace_model``): the same layers and the same ``default_rng(5)`` weights,
 as a module the torch tracer walks. Its relus are not quantized, so it traces
 to a different program than ``bench.py``'s, of the same shape of work.
+``flagship_twin`` is the same kind of twin of the flagship MLP
+(``entry.flagship_comb``).
 """
 
 from __future__ import annotations
@@ -47,4 +49,27 @@ def config5_twin(limited: bool = False):
         model[4].weight.copy_(torch.from_numpy(w2.T.copy()))
         model[6].weight.copy_(torch.from_numpy(w3.T.copy()))
     model.input_shape = (cin, side, side)
+    return model.eval()
+
+
+def flagship_twin():
+    """``Linear(16, 32)``, ``ReLU``, ``Linear(32, 32)``, ``ReLU``,
+    ``Linear(32, 5)``, bias-free, with ``entry.flagship_comb``'s
+    ``default_rng(20260729)`` 4-bit integer weights; traced with inputs
+    (1, 3, 2) (``CONFIG5_INPUTS_KIF``). Its relus are not quantized, so its
+    program differs from the flagship's, with the same widths. float32, the
+    dtype of the command line's validation forward."""
+    import torch
+    import torch.nn as nn
+
+    rng = np.random.default_rng(20260729)
+    dims = [16, 32, 32, 5]
+    layers = []
+    for li in range(len(dims) - 1):
+        lin = nn.Linear(dims[li], dims[li + 1], bias=False)
+        with torch.no_grad():
+            lin.weight.copy_(torch.from_numpy(rng.integers(-8, 8, (dims[li], dims[li + 1])).astype(np.float32).T.copy()))
+        layers += [lin, nn.ReLU()] if li < len(dims) - 2 else [lin]
+    model = nn.Sequential(*layers)
+    model.input_shape = (dims[0],)
     return model.eval()

@@ -21,8 +21,12 @@ until an executor is asked for).
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 from numpy.typing import NDArray
+
+from .. import telemetry
 
 BACKENDS = ('torch', 'numpy', 'cpp')
 
@@ -31,8 +35,19 @@ def run_comb(
     comb, data: NDArray[np.float64], backend: str = 'torch', device=None, n_threads: int = 0
 ) -> NDArray[np.float64]:
     """Execute a CombLogic over a (n_samples, n_in) batch with the given
-    backend; ``device`` is the torch backend's, ``n_threads`` the cpp one's."""
-    binary = comb.to_binary()
+    backend; ``device`` is the torch backend's, ``n_threads`` the cpp one's.
+    One ``runtime.run_comb`` span and ``runtime.*`` sample per call."""
+    _metrics = telemetry.metrics_on()
+    _t0 = time.perf_counter() if _metrics else 0.0
+    with telemetry.span('runtime.run_comb', backend=backend, n_samples=len(data)):
+        result = _run_comb_backend(comb.to_binary(), data, backend, device, n_threads)
+    if _metrics:
+        telemetry.histogram('runtime.run_s').observe(time.perf_counter() - _t0)
+        telemetry.counter('runtime.samples').inc(len(data))
+    return result
+
+
+def _run_comb_backend(binary, data, backend: str, device, n_threads: int) -> NDArray[np.float64]:
     if backend == 'torch':
         from .torch_backend import run_binary
 

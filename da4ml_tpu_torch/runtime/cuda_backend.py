@@ -39,7 +39,9 @@ on the current stream, or raises; on a CPU tensor it runs the plain
 ``level`` version (``torch_backend.LevelPlan``). It counts its launches in
 the module-level ``launches`` (``scratch_launches`` counts those that kept
 the buffer in global memory because the program was too wide for shared
-memory).
+memory). Its first launch records the reference's ``run.pallas.compile_s``
+(the library's load or build, the program's packing and upload) and
+``run.pallas.vmem_bytes`` (here: the dynamic shared memory of a block).
 """
 
 from __future__ import annotations
@@ -52,12 +54,14 @@ import re
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import NamedTuple
 
 import numpy as np
 import torch
 
+from .. import telemetry
 from ..ir.optable import OP_TABLE
 from ..ir.schedule import operand_edges
 
@@ -712,6 +716,7 @@ class DaisKernel:
         self.bits = 8 * self.itemsize
         self.n_in, self.n_out, self.n_ops = ex.prog.n_in, ex.prog.n_out, ex.prog.n_ops
         self._dev: dict[torch.device, tuple] = {}
+        self._built = False
 
     @functools.cached_property
     def data(self) -> KernelData:
@@ -776,11 +781,17 @@ class DaisKernel:
         y = torch.empty((batch, self.n_out), dtype=self.dtype, device=device)
         if batch == 0 or self.n_out == 0:
             return y
+        t_build = time.perf_counter()
         lib, d = load(), self.data
         stream_, offsets, pool, outs, tab = (t.data_ptr() for t in self._on(device))
         g = self.geometry(device)
         if (g.scratch_rows is None) != (d.slot_unit > 1):
             raise ValueError(f'DAIS kernel: a {d.n_slots}-slot tile does not fit this device\'s shared memory')
+        if not self._built:
+            self._built = True
+            if telemetry.metrics_on():
+                telemetry.histogram('run.pallas.compile_s').observe(time.perf_counter() - t_build)
+                telemetry.histogram('run.pallas.vmem_bytes', telemetry.BYTES_BUCKETS).observe(g.smem)
         stream = torch.cuda.current_stream(device).cuda_stream
 
         def run(r0: int, n: int, scratch) -> None:

@@ -39,6 +39,14 @@ Entry points run on the card unless the caller passes ``device='cpu'``;
 Counterpart of ``DaisExecutor``, ``PipelineExecutor`` and ``run_pipeline`` in
 ``da4ml_tpu/runtime/jax_backend.py``, without the ``unroll``/``scan`` modes,
 autotune, sharding and model-shard paths.
+
+Telemetry, as the reference records it: each call is one ``run.call`` span
+(``mode`` ``'pallas'`` — the CUDA kernel plays the reference's Pallas
+kernel — or ``'level'``, its plain version on the CPU, and the pipelines'
+``'pipeline-fused'`` / ``'pipeline-chained'``) whose device work runs inside
+``telemetry.obs.profile.annotate('run.call')``, and one sample of the
+``run.*`` metrics; ``run.device_s`` is the boundary's upload, kernel and
+download, timed where the call already waits for its output.
 """
 
 from __future__ import annotations
@@ -46,13 +54,17 @@ from __future__ import annotations
 from collections import OrderedDict
 from functools import lru_cache
 
+import time
+
 import numpy as np
 import torch
 from numpy.typing import NDArray
 
+from .. import telemetry
 from ..ir.dais_binary import DaisProgram, decode
 from ..ir.optable import OP_TABLE, VECTOR_CLASS
 from ..ir.schedule import LevelSchedule, levelize_program
+from ..telemetry.obs import profile as _prof
 
 
 class InvalidInputError(ValueError):
@@ -572,11 +584,42 @@ def boundary_call(first: 'DaisExecutor', last: 'DaisExecutor', fn, data, device:
     def on_device(xf):
         return last.float_outputs_on(fn(first.int_inputs_on(xf, bad)))
 
+    timed = telemetry.metrics_on()
+    t0 = time.perf_counter() if timed else 0.0
     out = run_chunks(arr, on_device, last.prog.n_out, torch.float64, device)
+    if timed:  # run_chunks returns once the output is on the host
+        telemetry.histogram('run.device_s').observe(time.perf_counter() - t0)
     n_bad = int(bad)
     if n_bad:
         raise non_finite_error(what, n_bad)
     return out
+
+
+def _record_call(holder, n: int, dt: float, nbytes: int = 0) -> None:
+    """run.* telemetry for one batch call; the first call of an executor
+    includes its kernel's build and is recorded as ``run.compile_s``."""
+    if not holder._compile_recorded:
+        holder._compile_recorded = True
+        telemetry.histogram('run.compile_s').observe(dt)
+    if telemetry.metrics_on() and dt > 0:
+        telemetry.gauge('run.samples_per_s').set(n / dt)
+        telemetry.histogram('run.batch_s').observe(dt)
+        telemetry.histogram('run.batch_samples', telemetry.COUNT_BUCKETS).observe(n)
+        if nbytes:
+            telemetry.histogram('run.hbm_bytes', telemetry.BYTES_BUCKETS).observe(nbytes)
+        telemetry.counter('run.samples').inc(n)
+
+
+def _traced_call(holder, first: 'DaisExecutor', last: 'DaisExecutor', fn, data, mode: str) -> NDArray[np.float64]:
+    """``boundary_call`` as one ``run.call`` span, its device work annotated
+    for the profiler, and its ``run.*`` sample."""
+    t0 = time.perf_counter()
+    with telemetry.span('run.call', mode=mode, n_samples=len(data)) as sp:
+        with _prof.annotate('run.call', sp.span_id):
+            res = boundary_call(first, last, fn, data, holder.device)
+    _record_call(holder, len(data), time.perf_counter() - t0,
+                 nbytes=len(data) * (first.prog.n_in + last.prog.n_out) * 8)  # fmt: skip
+    return res
 
 
 class DaisExecutor:
@@ -607,6 +650,9 @@ class DaisExecutor:
         # the wrapper packs the kernel's records at its first launch: a CPU
         # executor never builds them
         self.kernel = DaisKernel(self)
+        self.mode = 'pallas' if self.device.type == 'cuda' else 'level'
+        self._compile_recorded = False
+        telemetry.counter(f'run.mode.{self.mode}').inc()
 
     def fn_int(self, x: torch.Tensor) -> torch.Tensor:
         """(batch, n_in) integer tensor -> (batch, n_out), on x's device."""
@@ -668,7 +714,7 @@ class DaisExecutor:
         return torch.from_numpy(self._int_inputs(data)).to(self.device)
 
     def __call__(self, data: NDArray[np.float64]) -> NDArray[np.float64]:
-        return boundary_call(self, self, self.fn_int, data, self.device)
+        return _traced_call(self, self, self, self.fn_int, data, self.mode)
 
 
 class PipelineExecutor:
@@ -725,6 +771,7 @@ class PipelineExecutor:
             rsh = np.minimum(np.where(s < 0, -s, 0), bits - 1).astype(np_dt)
             self._shift_consts.append((mul, rsh))
         self._consts: dict[torch.device, list] = {}
+        self._compile_recorded = False
 
     def _boundary(self, x: torch.Tensor, k: int) -> torch.Tensor:
         hit = self._consts.get(x.device)
@@ -747,7 +794,7 @@ class PipelineExecutor:
     def __call__(self, data: NDArray[np.float64]) -> NDArray[np.float64]:
         """All stages over each chunk of the batch behind the call boundary
         (``boundary_call``)."""
-        return boundary_call(self.stages[0], self.stages[-1], self.fn_int, data, self.device)
+        return _traced_call(self, self.stages[0], self.stages[-1], self.fn_int, data, 'pipeline-fused')
 
     def chained(self, data: NDArray[np.float64]) -> NDArray[np.float64]:
         """The per-stage entry point, ``fused=False`` of ``run_pipeline``.
@@ -756,9 +803,9 @@ class PipelineExecutor:
         program per stage with donated buffers. In PyTorch both are the same
         sequence of launches on one stream, each intermediate freed as soon
         as the next stage has read it (the counterpart of donation), so this
-        is ``__call__``.
+        is ``__call__`` under the reference's ``run.call`` mode for it.
         """
-        return self(data)
+        return _traced_call(self, self.stages[0], self.stages[-1], self.fn_int, data, 'pipeline-chained')
 
 
 _EXECUTOR_CACHE_CAP = 256
@@ -808,7 +855,9 @@ def fused_executor_for_binaries(binaries: list[NDArray[np.int32]], device=None) 
     def build():
         from ..ir.fuse import fuse_binaries
 
-        return DaisExecutor(decode(fuse_binaries(binaries)), device=dev)
+        ex = DaisExecutor(decode(fuse_binaries(binaries)), device=dev)
+        telemetry.counter('run.mode.fused_ir').inc()
+        return ex
 
     return _cached(_fused_ir_cache, (_pipeline_key(binaries), str(dev)), build)
 

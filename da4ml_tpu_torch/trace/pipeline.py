@@ -13,16 +13,16 @@ Counterpart of ``da4ml_tpu/trace/pipeline.py``: the same stages, byte for byte.
 
 from __future__ import annotations
 
-import logging
 from collections import defaultdict
 from math import floor
 
+from .. import telemetry
 from ..ir.comb import CombLogic, Pipeline
 from ..ir.types import Op
 from .fixed_variable import FixedVariable, HWConfig
 from .tracer import comb_trace, mux_cond_slot, mux_shift, pack_mux_payload
 
-_logger = logging.getLogger(__name__)
+_logger = telemetry.get_logger('trace.pipeline')
 
 
 class _StageBuilder:
@@ -82,8 +82,8 @@ def to_pipeline(comb: CombLogic, latency_cutoff: float, retiming: bool = True, v
     if not comb.ops:
         raise AssertionError('cannot pipeline an empty program')
 
-    _logger.debug('to_pipeline: %d ops, latency cutoff %s', len(comb.ops), latency_cutoff)
-    return _to_pipeline_impl(comb, latency_cutoff, retiming, verbose)
+    with telemetry.span('trace.to_pipeline', n_ops=len(comb.ops), cutoff=latency_cutoff):
+        return _to_pipeline_impl(comb, latency_cutoff, retiming, verbose)
 
 
 def _to_pipeline_impl(comb: CombLogic, latency_cutoff: float, retiming: bool, verbose: bool) -> Pipeline:
@@ -152,19 +152,20 @@ def _resplit(pipe: Pipeline, cutoff: float, adder_size: int, carry_size: int) ->
 
 def retime_pipeline(pipe: Pipeline, verbose: bool = False) -> Pipeline:
     """Binary-search the smallest cutoff preserving the stage count."""
-    n_stages = len(pipe.stages)
-    adder_size, carry_size = pipe.stages[0].adder_size, pipe.stages[0].carry_size
-    hi = max(max(stage.out_latency) / (i + 1) for i, stage in enumerate(pipe.stages))
-    lo = max(pipe.out_latencies) / n_stages
-    best = pipe
-    while hi - lo > 1:
-        mid = (hi + lo) // 2
-        cand = _resplit(pipe, mid, adder_size, carry_size)
-        if cand is None or len(cand.stages) > n_stages:
-            lo = mid
-        else:
-            hi = mid
-            best = cand
-    if verbose:
-        _logger.info(f'retimed latency cutoff: {hi}')
-    return best
+    with telemetry.span('trace.retime', n_stages=len(pipe.stages)):
+        n_stages = len(pipe.stages)
+        adder_size, carry_size = pipe.stages[0].adder_size, pipe.stages[0].carry_size
+        hi = max(max(stage.out_latency) / (i + 1) for i, stage in enumerate(pipe.stages))
+        lo = max(pipe.out_latencies) / n_stages
+        best = pipe
+        while hi - lo > 1:
+            mid = (hi + lo) // 2
+            cand = _resplit(pipe, mid, adder_size, carry_size)
+            if cand is None or len(cand.stages) > n_stages:
+                lo = mid
+            else:
+                hi = mid
+                best = cand
+        if verbose:
+            _logger.info(f'retimed latency cutoff: {hi}')
+        return best

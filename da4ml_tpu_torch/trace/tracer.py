@@ -19,18 +19,17 @@ The emitted encoding is the DAIS v1 instruction set. Counterpart of
 
 from __future__ import annotations
 
-import logging
 from collections.abc import Callable, Sequence
 from decimal import Decimal
 from math import log2
 
 import numpy as np
 
+from .. import telemetry
 from ..ir.comb import CombLogic
 from ..ir.types import Op, QInterval
 from .fixed_variable import FixedVariable, const_f, table_context
 
-_logger = logging.getLogger(__name__)
 
 # ---------------------------------------------------------------------------
 # DAIS data-word packing.  Two opcodes carry packed payloads; the layout is
@@ -340,28 +339,31 @@ def comb_trace(inputs, outputs, keep_dead_inputs: bool = False) -> CombLogic:
     ins = [inputs] if isinstance(inputs, FixedVariable) else list(np.ravel(inputs))
     outs = [outputs] if isinstance(outputs, FixedVariable) else list(np.ravel(outputs))
 
-    for v in ins:
-        if v._factor <= 0:
-            raise AssertionError(f'trace input v{v.id} carries a non-positive factor {v._factor}')
+    with telemetry.span('trace.comb_trace', n_in=len(ins), n_out=len(outs)) as sp:
+        for v in ins:
+            if v._factor <= 0:
+                raise AssertionError(f'trace input v{v.id} carries a non-positive factor {v._factor}')
 
-    if any(not isinstance(o, FixedVariable) for o in outs):
-        hwconf = ins[0].hwconf
-        outs = [o if isinstance(o, FixedVariable) else FixedVariable.from_const(o, hwconf, 1) for o in outs]
+        if any(not isinstance(o, FixedVariable) for o in outs):
+            hwconf = ins[0].hwconf
+            outs = [o if isinstance(o, FixedVariable) else FixedVariable.from_const(o, hwconf, 1) for o in outs]
 
-    ops, out_slots, tables = _emit_program(ins, outs)
+        ops, out_slots, tables = _emit_program(ins, outs)
 
-    factors = [o._factor for o in outs]
-    comb = CombLogic(
-        (len(ins), len(outs)),
-        [0] * len(ins),
-        out_slots,
-        [int(log2(abs(f))) for f in factors],
-        [f < 0 for f in factors],
-        ops,
-        outs[0].hwconf.carry_size,
-        outs[0].hwconf.adder_size,
-        tables,
-    )
-    result = dead_statement_elimination(comb, keep_dead_inputs)
-    _logger.debug('comb_trace: %d inputs, %d outputs, %d ops', len(ins), len(outs), len(result.ops))
-    return result
+        factors = [o._factor for o in outs]
+        comb = CombLogic(
+            (len(ins), len(outs)),
+            [0] * len(ins),
+            out_slots,
+            [int(log2(abs(f))) for f in factors],
+            [f < 0 for f in factors],
+            ops,
+            outs[0].hwconf.carry_size,
+            outs[0].hwconf.adder_size,
+            tables,
+        )
+        result = dead_statement_elimination(comb, keep_dead_inputs)
+        telemetry.counter('trace.ops').inc(len(result.ops))
+        if sp:
+            sp.set(n_ops=len(result.ops))
+        return result

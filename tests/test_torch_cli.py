@@ -7,9 +7,11 @@ every flavour writes the JAX package's project file for file; a pickled
 torch module converts in a subprocess with zero mismatches and the JAX
 package's ``mismatches.json``; ``report`` gives the JAX package's table in
 every format; ``verify`` gives its text, JSON and exit code on every
-corruption of the catalog; ``verify --fuzz`` runs clean; each option the
-port does not carry yet exits 2 naming its ROADMAP item, and so does a run
-that would need the card where there is none."""
+corruption of the catalog; ``verify --fuzz`` runs clean; ``convert
+--trace`` writes a trace that validates, which ``stats`` and ``trace-view``
+read, and ``monitor`` serves for its ``--duration``; each option the port
+does not carry yet exits 2 naming its ROADMAP item, and so does a run that
+would need the card where there is none."""
 
 import json
 import os
@@ -249,7 +251,6 @@ def test_verify_no_paths_errors(capsys):
         (['--deadline', '5'], 'item 10'),
         (['--fallback', 'on'], 'item 10'),
         (['--resume', 'ckpt.json'], 'item 10'),
-        (['--trace', 'trace.json'], 'item 9'),
         (['--warmup'], 'item 12'),
         (['--warmup-max-dim', '32'], 'item 12'),
     ],
@@ -296,3 +297,82 @@ def test_console_script_and_main_module():
     r = subprocess.run([sys.executable, '-m', 'da4ml_tpu_torch', 'lint-opcodes'], capture_output=True, text=True,
                        cwd=ROOT, timeout=120)  # fmt: skip
     assert r.returncode == 0 and r.stdout.startswith('lint-opcodes: ok'), r.stdout + r.stderr
+
+
+@pytest.fixture
+def telemetry_state():
+    """Telemetry is process-global: every sink, metric, span watcher and
+    server a test leaves behind is torn down, and the package logger's
+    configuration restored, so nothing leaks into the next test of the
+    worker."""
+    import logging
+
+    from da4ml_tpu_torch import telemetry
+    from da4ml_tpu_torch.telemetry import log as tlog
+    from da4ml_tpu_torch.telemetry.obs.server import stop_server
+
+    base = logging.getLogger('da4ml_tpu_torch')
+    saved = (list(base.handlers), base.level, base.propagate, tlog._configured)
+    yield telemetry
+    stop_server()
+    telemetry.reset()
+    base.handlers[:], base.level, base.propagate = saved[0], saved[1], saved[2]
+    tlog._configured = saved[3]
+
+
+def test_convert_trace_validates_and_stats_and_trace_view_read_it(tmp_path, capsys, comb_json, telemetry_state):
+    """``convert --trace`` writes a Chrome trace that the port's validator
+    passes, with the conversion's, the executor's and codegen's spans;
+    ``stats`` summarizes it (table and JSON) and ``trace-view`` merges it."""
+    trace = tmp_path / 't.json'
+    assert tmain(['convert', str(comb_json), str(tmp_path / 'prj'), '--device', 'cpu', '-n', '32', '--trace', str(trace)]) == 0
+    events, metrics = telemetry_state.load_trace(trace)
+    telemetry_state.validate_trace(events)
+    names = {e['name'] for e in events}
+    assert {'cli.convert', 'run.call', 'codegen.rtl.write'} <= names, names
+    assert metrics['run.samples']['value'] == 32
+    assert not telemetry_state.tracing_active() and not telemetry_state.metrics_on()
+    capsys.readouterr()
+    assert tmain(['stats', str(trace), '--validate']) == 0
+    out = capsys.readouterr().out
+    assert f'{trace}: {len(events)} events' in out and 'run.call' in out and 'run.samples: 32' in out
+    assert tmain(['stats', str(trace), '--json']) == 0
+    doc = json.loads(capsys.readouterr().out)
+    assert doc['n_events'] == len(events) and doc['spans']['cli.convert']['count'] == 1
+    merged = tmp_path / 'merged.json'
+    assert tmain(['trace-view', str(trace), '--out', str(merged)]) == 0
+    view, _ = telemetry_state.load_trace(merged)
+    assert {e['name'] for e in view} >= names
+    assert tmain(['stats', str(tmp_path / 'missing.json')]) == 1
+    assert tmain(['trace-view', str(tmp_path / 'missing.jsonl')]) == 2
+
+
+def test_monitor_serves_for_its_duration(telemetry_state):
+    """``monitor --duration`` binds an ephemeral port, logs its URL and
+    exits 0; ``/metrics`` answers valid OpenMetrics while it runs."""
+    import threading
+    import urllib.request
+
+    from da4ml_tpu_torch.telemetry.obs import server_port, validate_openmetrics
+
+    rc = {}
+    t = threading.Thread(target=lambda: rc.setdefault('rc', tmain(['monitor', '--port', '0', '--duration', '1.5'])))
+    t.start()
+    for _ in range(100):
+        if server_port():
+            break
+        threading.Event().wait(0.02)
+    port = server_port()
+    assert port, 'monitor did not bind'
+    with urllib.request.urlopen(f'http://127.0.0.1:{port}/metrics', timeout=5) as r:
+        validate_openmetrics(r.read().decode())
+    t.join(timeout=30)
+    assert rc == {'rc': 0}
+
+
+def test_help_lists_the_telemetry_subcommands():
+    r = subprocess.run([sys.executable, '-m', 'da4ml_tpu_torch', '--help'], capture_output=True, text=True, cwd=ROOT,
+                       timeout=120)  # fmt: skip
+    assert r.returncode == 0
+    for sub in ('stats', 'trace-view', 'monitor'):
+        assert sub in r.stdout

@@ -1,6 +1,7 @@
 """The port stands alone: it imports neither jax nor anything of da4ml_tpu."""
 
 import ast
+import json
 import re
 import subprocess
 import sys
@@ -212,3 +213,48 @@ def test_no_jax_or_reference_imports(path):
             assert root not in ('jax', 'jaxlib', 'da4ml_tpu'), f'{path.name} imports {name}'
     assert not re.search(r'\bimport jax\b|\bfrom jax\b', src)
     assert not re.search(r'\bda4ml_tpu\.|\bfrom da4ml_tpu\b(?!_)|\bimport da4ml_tpu\b(?!_)', src)
+
+
+def test_scans_cover_the_telemetry_modules():
+    files = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
+    mods = [f'telemetry/{m}' for m in ('__init__', 'core', 'metrics', 'log', 'export', 'catalog')]
+    mods += [f'telemetry/obs/{m}' for m in ('__init__', 'profile', 'collect', 'openmetrics', 'health', 'server', 'tailer')]
+    mods += ['_cli/stats', '_cli/trace_view', '_cli/monitor', 'typing']
+    assert {f'da4ml_tpu_torch/{m}.py' for m in mods} <= files
+
+
+_ROOT_EXPORTS = """
+import json
+import sys
+import da4ml_tpu_torch as d
+light = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'da4ml_tpu', 'torch'))
+assert not light, light
+from da4ml_tpu_torch import CombLogic, LookupTable, Op, Pipeline, Precision, QInterval, minimal_kif
+from da4ml_tpu_torch.cmvm import solve
+from da4ml_tpu_torch.converter import trace_model
+from da4ml_tpu_torch.analysis import verify
+assert (d.solve, d.trace_model, d.verify) == (solve, trace_model, verify)
+assert d.telemetry is sys.modules['da4ml_tpu_torch.telemetry']
+import da4ml_tpu_torch.typing as t
+assert t.HWConfig is sys.modules['da4ml_tpu_torch.trace'].HWConfig and t.CombLogic is CombLogic
+import torch
+assert not torch.cuda.is_initialized()
+bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'da4ml_tpu'))
+assert not bad, bad
+print(json.dumps([sorted(d.__all__), sorted(t.__all__)]))
+"""
+
+
+def test_root_exports_the_reference_names_lazily():
+    """``import da4ml_tpu_torch`` gives the reference root's names (and
+    ``telemetry``) without importing torch, jax or da4ml_tpu; resolving the
+    lazy ones initialises no CUDA. ``da4ml_tpu_torch.typing`` mirrors
+    ``da4ml_tpu.typing``."""
+    import da4ml_tpu
+    import da4ml_tpu.typing
+
+    proc = subprocess.run([sys.executable, '-c', _ROOT_EXPORTS], cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+    names, typing_names = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert names == sorted([*da4ml_tpu.__all__, 'telemetry'])
+    assert typing_names == sorted(da4ml_tpu.typing.__all__)

@@ -425,3 +425,54 @@ def test_smoke_rung_work_is_the_lane_by_lane_replay(P, O, B, adder, carry, n_row
     rec, cur = out[3].numpy(), out[4].numpy()
     assert (cur - inputs[3]).max() > 0
     assert smoke.rung_work(ts, inputs, rec, cur, spec) == _lane_by_lane_work(inputs, rec, cur, spec)
+
+
+def _check_signature(port_fn, ref_fn, port_only: tuple[str, ...]):
+    """``port_fn`` binds positional arguments as ``ref_fn`` does: the same
+    positional parameters in the same order, the shared keyword-only ones
+    in the reference's order, and the port's own names last and
+    keyword-only."""
+    import inspect
+
+    tp = list(inspect.signature(port_fn).parameters.values())
+    rp = list(inspect.signature(ref_fn).parameters.values())
+    positional = (inspect.Parameter.POSITIONAL_ONLY, inspect.Parameter.POSITIONAL_OR_KEYWORD)
+    assert [p.name for p in tp if p.kind in positional] == [p.name for p in rp if p.kind in positional]
+    ref_names = [p.name for p in rp]
+    shared = [p.name for p in tp if p.name in ref_names]
+    assert shared == [n for n in ref_names if n in shared]
+    assert [p.name for p in tp][len(shared):] == list(port_only)
+    for p in tp:
+        if p.name in port_only:
+            assert p.kind == inspect.Parameter.KEYWORD_ONLY, p
+        else:
+            assert p.kind == next(r.kind for r in rp if r.name == p.name), p
+            assert p.default == next(r.default for r in rp if r.name == p.name), p
+
+
+def test_solve_signature_is_the_reference_s():
+    import inspect
+
+    from da4ml_tpu.cmvm import api as japi
+
+    _check_signature(api.solve, japi.solve, ('device',))
+    assert list(inspect.signature(api.solve).parameters)[14] == 'mesh'
+
+
+def test_solve_torch_signatures_are_the_reference_s():
+    _check_signature(ts.solve_torch_many, js._solve_jax_many_impl, ('device',))
+    _check_signature(ts.solve_torch, js.solve_jax, ('device',))
+
+
+def test_positional_mesh_binds_and_a_real_mesh_raises():
+    """``mesh`` binds at the reference's position and must be None; the
+    multi-device search is not ported."""
+    w = np.array([[3.0, -5.0], [6.0, 1.0]])
+    args = (w, 'wmc', 'auto', -1, -2, None, None, -1, -1, True, 'cpu', 0, None, 1, None)
+    assert api.solve(*args).kernel.tolist() == w.tolist()
+    with pytest.raises(NotImplementedError, match='mesh'):
+        api.solve(*args[:14], object())
+    with pytest.raises(NotImplementedError, match='mesh'):
+        ts.solve_torch_many([w], 'wmc', 'auto', -1, -2, None, None, -1, -1, True, object(), device='cpu')
+    with pytest.raises(TypeError):
+        api.solve(*args, 'fast')  # quality is keyword-only, as in the reference
