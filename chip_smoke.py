@@ -178,7 +178,24 @@ on them against its plain PyTorch version:
    ephemeral port) scraped after a flagship call held to the reference
    interpreter, and its ``/metrics`` held to ``validate_openmetrics``. It runs beside the twin's
    g++ build, before phase 17;
-17. the command line, each step ``python -m da4ml_tpu_torch`` in a child
+17. the executor's forced modes (``DaisExecutor(prog, force_i64, mode)``):
+   the flagship at ``FLAGSHIP_SAMPLES`` samples in ``unroll``, ``scan``,
+   ``level`` and ``pallas`` (K1), the forced K1 call's first
+   ``MODES_REF_SAMPLES`` rows equal to the reference interpreter and every
+   other mode's output, none of which launches K1, equal to it on every row,
+   each mode's ``fn_int`` timed with CUDA events; the ``MODES_CORPUS`` synth
+   programs (narrow and wide) in every mode, as built and with
+   ``force_i64=True`` (K1's int64 instantiation for the narrow ones), each
+   equal to the reference interpreter; config 5 at
+   ``MODES_CONFIG5_SAMPLES`` in ``unroll``, ``scan`` and ``pallas``, equal to
+   each other and on the first ``MODES_CONFIG5_REF_SAMPLES`` to the
+   reference interpreter, timed; the int64 config-5 twin (under
+   ``UNROLL_LIMIT`` ops) at ``MODES_TWIN_SAMPLES`` in ``unroll`` and
+   ``pallas``, equal to each other and on the first
+   ``MODES_TWIN_REF_SAMPLES`` to the reference interpreter; ``mode='unroll'``
+   refusing the 256x256 conv front end (over ``UNROLL_LIMIT`` ops) with the
+   reference's message. It runs beside the twin's g++ build, after phase 16;
+18. the command line, each step ``python -m da4ml_tpu_torch`` in a child
    process with its exit code checked: the flagship saved as ``.json`` and
    converted to HLS projects (``vitis``, ``hlslib``, ``oneapi``) equal to
    the JAX package's (``CLI_DIGESTS``), then converted with
@@ -189,14 +206,14 @@ on them against its plain PyTorch version:
    ``CLI_TWIN_SAMPLES`` samples (these two start right after phase 1:
    the g++ build of the twin's emulator is the run's longest step);
    ``verify --conformance`` of the twin's project and ``verify --fuzz``
-   (numpy, cpp and K1 against the reference interpreter, and the
-   transfer-soundness sweep) ok; ``verify --json`` of a corrupted program
+   (numpy, cpp and the executor's four modes, K1 among them, against the
+   reference interpreter, and the transfer-soundness sweep) ok; ``verify --json`` of a corrupted program
    equal to the JAX package's (``VERIFY_DIGEST``); ``lint-opcodes`` ok. In
    this process, the same ``convert`` of the twin with every rung call held
    to K2's plain version, K1 on both programs, the emulator the command
    line built held to K1, and the g++ build, emulator and K1 times
    (``cli_flagship``, ``cli_twin``);
-18. checks that neither jax nor da4ml_tpu was imported.
+19. checks that neither jax nor da4ml_tpu was imported.
 
 Every count is set to 0 just before its path is driven and read just after;
 the kernel line gives each kernel's main-path launches summed over the
@@ -208,7 +225,10 @@ search's as ``quality_flagship_<q>``, ``quality_corpus`` and
 ``quality_config5``; the telemetry phase's as ``telemetry_profile`` (the
 profile child's wrapper counts, reset in the child just before its solves
 and calls and read just after), ``telemetry_overhead`` and
-``telemetry_endpoint``; the convert child's launches stay in the child).
+``telemetry_endpoint``; the convert child's launches stay in the child;
+the executor-modes phase's as ``modes_flagship``, ``modes_corpus``,
+``modes_config5`` and ``modes_twin``, only the forced ``mode='pallas'`` calls whose outputs are
+checked).
 
 Prints the wall time of each phase, the kernel table as one JSON line,
 the card line, and last
@@ -287,6 +307,17 @@ WIDE_CONV_SAMPLES = 2048
 #: chunks run mostly in Python, under the GIL; larger ones only grow the
 #: buffer (ops x rows of int64) each thread holds
 REF_CHUNK_ROWS = (1 << 14, 1 << 15)
+#: the executor-modes phase: rows of the flagship's outputs held to the
+#: reference interpreter; the synth corpus's batch (odd, over one tile) and
+#: programs (seed, ops, wide); config 5's and the int64 twin's samples in each
+#: mode, and their rows held to the reference interpreter
+MODES_REF_SAMPLES = 1 << 16
+MODES_CORPUS_SAMPLES = 4099
+MODES_CORPUS = tuple((seed, 300, seed % 2 == 1) for seed in range(8))
+MODES_CONFIG5_SAMPLES = 1 << 16
+MODES_CONFIG5_REF_SAMPLES = 4096
+MODES_TWIN_SAMPLES = 1 << 14
+MODES_TWIN_REF_SAMPLES = 4096
 #: calls of the flagship's ``DaisExecutor.__call__`` each held to the one-launch route
 BOUNDARY_REPEATS = 20
 #: values beyond each integer type's range that the card's conversion must map
@@ -1349,7 +1380,7 @@ def run_config5(torch, ts, fused_cse, native, card: str, ptxas) -> dict:
           f"plain version (max abs err {err}), the first {MODEL_REF_SAMPLES} to the reference interpreter on this "
           f"program and on the 'cpp' one", flush=True)  # fmt: skip
     return {'k1_launches': launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked),
-            'cost': float(comb_dev.cost)}  # fmt: skip
+            'cost': float(comb_dev.cost), 'prog': prog}  # fmt: skip
 
 
 def stages_digest(pipe) -> str:
@@ -1468,7 +1499,7 @@ def run_wide_conv(torch, card: str, ptxas) -> dict:
     print(f'[{card}] wide conv: K1 {ms:.4f} ms for {WIDE_CONV_SAMPLES} samples ({launches} launches on the main path, '
           f'{scratch_launches} scratch), plain version {plain_ms:.4f} ms; bound {bound_ms:.4f} ms; equal '
           f'to the plain version (max abs err {err}) and the reference interpreter', flush=True)  # fmt: skip
-    return {'k1_launches': launches}
+    return {'k1_launches': launches, 'prog': prog}
 
 
 # ---------------------------------------------------------------------------
@@ -1984,7 +2015,8 @@ def firmware_twin(torch, ts, fused_cse, tmp, card: str) -> dict:
           f"equal to K1's rows", flush=True)  # fmt: skip
     print(f'firmware twin wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
     return {'k1_launches': launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked),
-            'k1_err': err, 'k1_ms': ms, 'k1_bound_ms': bound_ms, 'k2_ms': k2_ms, 'k2_bound_ms': k2_bound}  # fmt: skip
+            'k1_err': err, 'k1_ms': ms, 'k1_bound_ms': bound_ms, 'k2_ms': k2_ms, 'k2_bound_ms': k2_bound,
+            'prog': prog}  # fmt: skip
 
 
 def firmware_precondition(tmp) -> None:
@@ -2231,7 +2263,7 @@ def cli_twin(torch, ts, fused_cse, tmp, card: str) -> dict:
 
 
 def run_cli(torch, ts, fused_cse, comb, card: str, tmp, chain: CliTwinChain) -> dict:
-    """Phase 17: the command line as a user runs it
+    """Phase 18: the command line as a user runs it
     (``python -m da4ml_tpu_torch``, each step a child process, its exit code
     checked): the flagship saved as ``.json`` converted to HLS projects in
     each flavour (``CLI_DIGESTS``) and with ``--validate-rtl`` on
@@ -2240,7 +2272,7 @@ def run_cli(torch, ts, fused_cse, comb, card: str, tmp, chain: CliTwinChain) -> 
     project equal to the JAX package's (``CLI_DIGESTS['twin_hls']``), its
     validation passed, and the emulator it built equal to K1 in this process
     too; ``verify --conformance`` of the twin's project and ``verify --fuzz``
-    (modes numpy, cpp and torch: K1) reporting ok; ``verify --json`` of
+    (modes numpy, cpp and the executor's four, K1 as pallas) reporting ok; ``verify --json`` of
     ``corrupted_mul_program()`` exiting 1 with the reference's output
     (``VERIFY_DIGEST``); ``lint-opcodes`` exiting 0. In this process, beside
     the children where they would not share a timed span: ``cli_flagship``
@@ -2266,7 +2298,8 @@ def run_cli(torch, ts, fused_cse, comb, card: str, tmp, chain: CliTwinChain) -> 
     assert 'Q210' in out
     assert runs['lint'].wait().startswith('lint-opcodes: ok')
     fuzz = json.loads(runs['fuzz'].wait())
-    assert fuzz['ok'] and fuzz['conformance']['modes'] == ['numpy', 'cpp', 'torch'], fuzz['conformance']['diagnostics']
+    assert fuzz['ok'] and fuzz['conformance']['modes'] == ['numpy', 'cpp', 'unroll', 'scan', 'level', 'pallas'], (
+        fuzz['conformance']['diagnostics'])
     assert fuzz['conformance']['n_programs'] == CLI_FUZZ and fuzz['transfer_soundness']['ok']
     chain.wait_converted()
     digest = project_digest(tmp / 'twin')
@@ -2300,7 +2333,7 @@ def run_cli(torch, ts, fused_cse, comb, card: str, tmp, chain: CliTwinChain) -> 
     seconds = ', '.join(f'{r.label} {r.seconds:.1f} s' for r in children)
     print(f"[{card}] cli: every command exited as it should: the flagship's HLS projects equal the JAX package's; K1 "
           f"equal to the g++ emulator on {CLI_FLAGSHIP_SAMPLES} flagship and {CLI_TWIN_SAMPLES} twin samples; verify "
-          f"--conformance ({CLI_CONFORMANCE_SAMPLES} samples, modes numpy, cpp, torch) and --fuzz {CLI_FUZZ} ok; the "
+          f"--conformance ({CLI_CONFORMANCE_SAMPLES} samples, modes numpy, cpp, unroll, scan, level, pallas) and --fuzz {CLI_FUZZ} ok; the "
           f"corrupted program's diagnostics equal the reference's; lint-opcodes ok. g++ builds of the emulator (-O2, "
           f"the command line's): flagship {flagship['cli_build_s']:.3f} s, twin {twin_build_s:.3f} s "
           f"({sum(len(s.ops) for s in built.solution.stages)} ops). Child wall times (host clock, {cpu_model()}): "
@@ -2884,6 +2917,194 @@ def run_telemetry(torch, comb, card: str) -> dict:
             'k2_paths': {'telemetry_profile': prof['k2_launches']}}  # fmt: skip
 
 
+def modes_flagship(torch, prog, card: str) -> dict:
+    """The flagship at ``FLAGSHIP_SAMPLES`` samples through each forced mode
+    on the card. The forced ``mode='pallas'`` call (K1's count reset just
+    before, read just after) must launch K1; its first ``MODES_REF_SAMPLES``
+    rows equal the reference interpreter, and every other mode's call, none
+    of which launches K1, equals it on every row. Each mode's ``fn_int`` is
+    timed with CUDA events, and scan's host wall beside it."""
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import MODES, DaisExecutor
+
+    data = np.random.default_rng(20261018).uniform(-8, 8, (FLAGSHIP_SAMPLES, prog.n_in))
+    exs = {m: DaisExecutor(prog, mode=m) for m in MODES}
+    assert {m: ex.mode for m, ex in exs.items()} == {m: m for m in MODES}
+    cuda_backend.reset_counts()
+    y = exs['pallas'](data)
+    torch.cuda.synchronize()
+    launches = cuda_backend.launches
+    assert launches > 0, "flagship: the forced mode='pallas' call never launched K1"
+    reference_equal(prog, data[:MODES_REF_SAMPLES], y[:MODES_REF_SAMPLES])
+    x = exs['pallas'].int_inputs(data)
+    times, host = {}, {}
+    for m in ('unroll', 'scan', 'level'):
+        cuda_backend.reset_counts()
+        assert np.array_equal(exs[m](data), y), f"flagship: mode='{m}' differs from K1"
+        assert cuda_backend.launches == 0, f"flagship: mode='{m}' launched K1"
+    for m, reps in (('pallas', 20), ('unroll', 5), ('scan', 3), ('level', 5)):
+        times[m] = cuda_ms(lambda ex=exs[m]: ex.fn_int(x), reps=reps)
+    t0 = time.perf_counter()
+    exs['scan'].fn_int(x)
+    host['scan'] = time.perf_counter() - t0  # the host-side switch issues each step's launches
+    torch.cuda.synchronize()
+    host['scan_sync'] = time.perf_counter() - t0
+    print(f"[{card}] modes, flagship ({prog.n_ops} ops, {FLAGSHIP_SAMPLES} samples, int32): "
+          f"{', '.join(f'{m} {ms:.4f} ms' for m, ms in times.items())} (CUDA events, median); scan's host-side "
+          f"switch issues one call's launches in {host['scan']:.4f} s of host clock ({host['scan_sync']:.4f} s to its "
+          f"end); the forced pallas call launched K1 {launches} times, its first {MODES_REF_SAMPLES} rows equal to the "
+          f"reference interpreter and every row to unroll, scan and level", flush=True)  # fmt: skip
+    return {'k1_launches': launches, 'ms': times}
+
+
+def modes_corpus(torch, card: str) -> int:
+    """The ``MODES_CORPUS`` synth programs (narrow and wide, every family) in
+    every mode on the card, as built and with ``force_i64=True`` (a narrow
+    program then runs K1's int64 instantiation), each equal to the
+    reference interpreter on ``MODES_CORPUS_SAMPLES`` samples. Returns K1's
+    launches, counted around the checked calls."""
+    from da4ml_tpu_torch.ir.synth import random_inputs, random_program
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.reference import run_program
+    from da4ml_tpu_torch.runtime.torch_backend import MODES, DaisExecutor
+
+    launches, runs, i64_k1 = 0, 0, 0
+    for seed, n_ops, wide in MODES_CORPUS:
+        rng = np.random.default_rng(seed)
+        prog = random_program(rng, n_ops=n_ops, n_in=6, n_out=5, wide=wide)
+        data = random_inputs(rng, prog, MODES_CORPUS_SAMPLES)
+        want = run_program(prog, data)
+        for force_i64 in (None, True):
+            for m in MODES:
+                ex = DaisExecutor(prog, force_i64=force_i64, mode=m)
+                assert ex.use_i64 == (wide or bool(force_i64))
+                cuda_backend.reset_counts()
+                got = ex(data)
+                torch.cuda.synchronize()
+                n = cuda_backend.launches
+                assert (n > 0) == (m == 'pallas'), f'corpus seed {seed}: mode={m} launched K1 {n} times'
+                assert np.array_equal(got, want), (f'corpus seed {seed} (wide {wide}, force_i64 {force_i64}): '
+                                                   f'mode={m} differs from the reference interpreter')  # fmt: skip
+                launches += n
+                runs += 1
+                i64_k1 += m == 'pallas' and bool(force_i64) and not wide
+    print(f'[{card}] modes, synth corpus: {len(MODES_CORPUS)} programs ({sum(w for *_, w in MODES_CORPUS)} wide) x '
+          f'{len(MODES)} modes x (as built, force_i64=True) = {runs} runs of {MODES_CORPUS_SAMPLES} samples, each '
+          f'equal to the reference interpreter; {i64_k1} narrow programs through K1\'s int64 instantiation; K1 launched '
+          f'{launches} times', flush=True)  # fmt: skip
+    return launches
+
+
+def once_ms(torch, fn):
+    """One call of ``fn`` timed with CUDA events: (its output, milliseconds).
+    For a mode too slow to time more than once, on the call whose output is
+    checked."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def modes_config5(torch, prog, card: str) -> dict:
+    """Config 5 at ``MODES_CONFIG5_SAMPLES`` samples in unroll, scan and
+    pallas on the card: the forced pallas call (K1's count reset just
+    before, read just after) equal to the reference interpreter on its first
+    ``MODES_CONFIG5_REF_SAMPLES`` rows; K1's integer output equal to unroll's
+    and scan's on every row, each of those timed on that one call, K1 over
+    10."""
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+
+    data = np.random.default_rng(20261019).uniform(-8, 8, (MODES_CONFIG5_SAMPLES, prog.n_in))
+    exs = {m: DaisExecutor(prog, mode=m) for m in ('pallas', 'unroll', 'scan')}
+    cuda_backend.reset_counts()
+    y = exs['pallas'](data)
+    torch.cuda.synchronize()
+    launches = cuda_backend.launches
+    assert launches > 0, "config 5: the forced mode='pallas' call never launched K1"
+    reference_equal(prog, data[:MODES_CONFIG5_REF_SAMPLES], y[:MODES_CONFIG5_REF_SAMPLES])
+    x = exs['pallas'].int_inputs(data)
+    y_int = exs['pallas'].fn_int(x)
+    assert np.array_equal(exs['pallas'].float_outputs_on(y_int).cpu().numpy(), y)
+    times = {'pallas': cuda_ms(lambda: exs['pallas'].fn_int(x), reps=10)}
+    for m in ('unroll', 'scan'):
+        out, times[m] = once_ms(torch, lambda ex=exs[m]: ex.fn_int(x))
+        assert torch.equal(out, y_int), f"config 5: mode='{m}' differs from K1"
+    print(f"[{card}] modes, config 5 ({prog.n_ops} ops, {MODES_CONFIG5_SAMPLES} samples): "
+          f"{', '.join(f'{m} {ms:.4f} ms' for m, ms in times.items())} (CUDA events; pallas the median of 10, the "
+          f"others one call); the forced pallas call launched K1 {launches} times, equal to the reference interpreter "
+          f"on the first {MODES_CONFIG5_REF_SAMPLES} rows, K1 equal to unroll and scan on every row", flush=True)  # fmt: skip
+    return {'k1_launches': launches, 'ms': times}
+
+
+def modes_twin(torch, twin, wide, card: str) -> dict:
+    """The int64 config-5 twin (19436 ops, under ``UNROLL_LIMIT``: its
+    22424 ops are those of its seven-stage pipeline) in unroll and pallas at
+    ``MODES_TWIN_SAMPLES`` samples: the forced pallas call (K1's count reset
+    just before, read just after) equal to unroll on every row and to the
+    reference interpreter on the first ``MODES_TWIN_REF_SAMPLES``, both
+    timed; then ``mode='unroll'`` refusing the 256x256 conv front end, a
+    program over ``UNROLL_LIMIT`` ops, with the reference's message."""
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
+
+    data = np.random.default_rng(20261021).uniform(-8, 8, (MODES_TWIN_SAMPLES, twin.n_in))
+    exs = {m: DaisExecutor(twin, mode=m) for m in ('pallas', 'unroll')}
+    assert exs['unroll'].dtype == torch.int64
+    cuda_backend.reset_counts()
+    y = exs['pallas'](data)
+    torch.cuda.synchronize()
+    launches = cuda_backend.launches
+    assert launches > 0, "twin: the forced mode='pallas' call never launched K1"
+    reference_equal(twin, data[:MODES_TWIN_REF_SAMPLES], y[:MODES_TWIN_REF_SAMPLES])
+    x = exs['pallas'].int_inputs(data)
+    y_int = exs['pallas'].fn_int(x)
+    assert np.array_equal(exs['pallas'].float_outputs_on(y_int).cpu().numpy(), y)
+    times = {'pallas': cuda_ms(lambda: exs['pallas'].fn_int(x), reps=5)}
+    out, times['unroll'] = once_ms(torch, lambda: exs['unroll'].fn_int(x))
+    assert torch.equal(out, y_int), "twin: mode='unroll' differs from K1"
+    assert wide.n_ops > DaisExecutor.UNROLL_LIMIT, wide.n_ops
+    try:
+        DaisExecutor(wide, mode='unroll')
+    except ValueError as e:
+        message = str(e)
+    else:
+        raise AssertionError(f"mode='unroll' ran the {wide.n_ops}-op conv front end")
+    assert message == (f"mode='unroll' refuses a {wide.n_ops}-op program (compile time grows with program size; "
+                       f"UNROLL_LIMIT={DaisExecutor.UNROLL_LIMIT}). Use mode='level'."), message  # fmt: skip
+    print(f"[{card}] modes, twin ({twin.n_ops} ops, int64, {MODES_TWIN_SAMPLES} samples): "
+          f"{', '.join(f'{m} {ms:.4f} ms' for m, ms in times.items())} (CUDA events; pallas the median of 5, unroll "
+          f"one call); the forced pallas call launched K1 {launches} times, equal to the reference interpreter on the "
+          f"first {MODES_TWIN_REF_SAMPLES} rows, K1 equal to unroll on every row; the conv front end "
+          f"({wide.n_ops} ops) refused by unroll: {message}",
+          flush=True)  # fmt: skip
+    return {'k1_launches': launches, 'ms': times}
+
+
+def run_modes(torch, comb, config5_prog, twin_prog, wide_prog, card: str) -> dict:
+    """The executor-modes phase: ``modes_flagship``, ``modes_corpus``,
+    ``modes_config5`` and ``modes_twin`` (with the conv front end
+    ``wide_prog``). Prints the phase's wall time by step; returns K1's
+    checked launches by path."""
+    from da4ml_tpu_torch.ir.dais_binary import decode
+
+    laps = Laps()
+    flag = modes_flagship(torch, decode(comb.to_binary()), card)
+    laps.lap('flagship')
+    corpus = modes_corpus(torch, card)
+    laps.lap('corpus')
+    model = modes_config5(torch, config5_prog, card)
+    laps.lap('config 5')
+    twin = modes_twin(torch, twin_prog, wide_prog, card)
+    laps.lap('twin')
+    print(f'executor modes wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
+    return {'k1_paths': {'modes_flagship': flag['k1_launches'], 'modes_corpus': corpus,
+                         'modes_config5': model['k1_launches'], 'modes_twin': twin['k1_launches']}}  # fmt: skip
+
+
 def main() -> int:
     import torch
 
@@ -2949,7 +3170,7 @@ def main() -> int:
     assert native.has_solver() and native.has_emit()
     phases.lap('builds')
 
-    # phase 17's twin steps start now, beside the phases before it: the
+    # phase 18's twin steps start now, beside the phases before it: the
     # command line's g++ build of the twin's emulator is the run's longest step
     cli_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_cli_')
     chain = CliTwinChain(torch, Path(cli_tmp.name))
@@ -3146,13 +3367,20 @@ def main() -> int:
     tel = run_telemetry(torch, comb_dev, card)
     phases.lap('telemetry')
 
-    # phase 17: the command line — convert to HLS projects (K2, K1 against
-    # the g++ emulator), verify (conformance through K1), lint-opcodes
+    # phase 17: the executor's forced modes — the flagship, a synth corpus
+    # (force_i64 too) and config 5 through unroll, scan, level and K1 as
+    # mode='pallas', each held to the others and the reference interpreter;
+    # the int64 twin in unroll and K1; unroll refuses the conv front end
+    modes = run_modes(torch, comb_dev, model['prog'], firmware['twin']['prog'], wide_conv['prog'], card)
+    phases.lap('executor modes')
+
+    # phase 18: the command line — convert to HLS projects (K2, K1 against
+    # the g++ emulator), verify (conformance in every mode), lint-opcodes
     cli = run_cli(torch, ts, fused_cse, comb_dev, card, Path(cli_tmp.name), chain)
     cli_tmp.cleanup()
     phases.lap('cli')
 
-    # phase 18: the port imported nothing of JAX
+    # phase 19: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
     k1_paths = {'flagship': dais['launches'], 'config5': model['k1_launches'], 'fusion': fusion['k1_launches'],
@@ -3161,7 +3389,7 @@ def main() -> int:
                 **{f'pipeline_model_{mode}': n for mode, n in pipeline_launches.items()},
                 'firmware_flagship': firmware['flagship']['k1_launches'], 'firmware_twin': firmware['twin']['k1_launches'],
                 'cli_flagship': cli['flagship']['k1_launches'], 'cli_twin': cli['twin']['k1_launches'],
-                **quality['k1_paths'], **tel['k1_paths']}  # fmt: skip
+                **quality['k1_paths'], **tel['k1_paths'], **modes['k1_paths']}  # fmt: skip
     k2_paths = {'flagship': k2_launches, 'config5': model['k2_launches'], 'fusion': fusion['k2_launches'],
                 'firmware_twin': firmware['twin']['k2_launches'], 'cli_twin': cli['twin']['k2_launches'],
                 **quality['k2_paths'], **tel['k2_paths']}  # fmt: skip

@@ -68,7 +68,9 @@ def add_verify_args(parser: argparse.ArgumentParser) -> None:
         '--samples', type=int, default=64, help='input samples per program for conformance runs (--fuzz and --conformance)'
     )
     parser.add_argument(
-        '--modes', default=None, help='comma-separated backend modes for conformance (default: numpy,cpp,torch)'
+        '--modes',
+        default=None,
+        help='comma-separated backend modes for conformance (default: numpy,cpp,unroll,scan,level,pallas)',
     )
     add_device_arg(parser)
     parser.add_argument(

@@ -3,7 +3,8 @@ table-generated reference interpreter.
 
 Every runtime backend of the port promises bit-exactness with the DAIS v1
 semantics: the vectorized numpy interpreter (``'numpy'``), the native host
-interpreter (``'cpp'``) and ``DaisExecutor`` (``'torch'``: the CUDA kernel on
+interpreter (``'cpp'``) and ``DaisExecutor`` in each of its modes
+(``'unroll'``, ``'scan'``, ``'level'`` and ``'pallas'``: the CUDA kernel on
 the card, its plain torch version with ``device='cpu'``). This pass makes
 that promise checkable: it executes a program through each backend and
 compares outputs bit-wise against ``runtime.reference`` — the interpreter
@@ -13,8 +14,9 @@ anchored to the earliest divergent op (numpy exposes its execution buffer;
 the other modes are attributed through the output binding), carrying the
 opcode so ``--json`` output groups per-opcode.
 
-No mode is skipped: a backend that fails to build, load or launch on a
-program the reference executes is a C401 diagnostic too.
+No mode but ``'unroll'`` above ``runtime.UNROLL_LIMIT`` ops (which it
+refuses by design) is skipped: a backend that fails to build, load or launch
+on a program the reference executes is a C401 diagnostic too.
 
 Two entry points:
 
@@ -26,8 +28,8 @@ Two entry points:
   per-opcode corpus coverage (**C402**) and returns a JSON-ready report with
   per-opcode op/mismatch counts.
 
-Counterpart of ``da4ml_tpu/analysis/conformance.py``, whose jax
-``unroll``/``scan``/``level``/``pallas`` modes are ``'torch'`` here.
+Counterpart of ``da4ml_tpu/analysis/conformance.py``, with the port's
+``'cpp'`` mode beside the reference's.
 """
 
 from __future__ import annotations
@@ -38,11 +40,13 @@ from ..ir.comb import CombLogic
 from ..ir.dais_binary import DaisProgram, decode, encode
 from ..ir.optable import DAIS_V1_OPCODES, OPCODE_TO_SPEC, family_of
 from ..ir.synth import random_inputs, random_program
+from ..runtime import MODES, UNROLL_LIMIT
 from .diagnostics import Diagnostic
 
-#: execution targets differentially checked against the reference; 'torch'
-#: runs on the caller's device (the CUDA kernel on the card)
-CONFORMANCE_MODES = ('numpy', 'cpp', 'torch')
+#: execution targets differentially checked against the reference; the four
+#: executor modes run on the caller's device ('pallas': the CUDA kernel on the
+#: card, its plain version on the CPU)
+CONFORMANCE_MODES = ('numpy', 'cpp', *MODES)
 
 
 def _as_prog(program) -> DaisProgram:
@@ -66,10 +70,10 @@ def _run_mode(prog: DaisProgram, mode: str, data: np.ndarray, device=None):
         from ..native import run_binary
 
         return run_binary(encode(prog), data), None
-    if mode == 'torch':
+    if mode in MODES:
         from ..runtime.torch_backend import DaisExecutor
 
-        return DaisExecutor(prog, device=device)(data), None
+        return DaisExecutor(prog, mode=mode, device=device)(data), None
     raise ValueError(f'unknown conformance mode {mode!r}; available: {CONFORMANCE_MODES}')
 
 
@@ -88,7 +92,7 @@ def check_conformance(
     ``data`` overrides the synthetic input batch — for programs whose input
     lanes carry narrower-than-declared upstream values, the caller supplies
     realistic carries instead of the full-width random sweep. ``device`` is
-    where the ``'torch'`` mode runs (the card when None).
+    where the executor's modes run (the card when None).
     """
     from ..runtime import reference
 
@@ -103,6 +107,8 @@ def check_conformance(
 
     diags: list[Diagnostic] = []
     for mode in modes:
+        if mode == 'unroll' and prog.n_ops > UNROLL_LIMIT:
+            continue  # unroll refuses by design; not a conformance failure
         try:
             got, got_buf = _run_mode(prog, mode, data, device)
         except Exception as e:  # a backend crash on a valid program is a divergence

@@ -8,7 +8,8 @@ and value magnitudes tracked so narrow programs stay exactly representable on
 the int32 device path (the reference interpreter computes in int64;
 bit-exactness requires intermediates to agree mod 2^32).
 
-Counterpart of ``random_program``/``random_inputs`` in ``da4ml_tpu/ir/synth.py``:
+Counterpart of ``da4ml_tpu/ir/synth.py`` (``random_program``, ``random_pipeline``,
+``random_inputs``, ``opcode_counts``):
 the same generator, draw for draw, so a seed gives the same program in both.
 """
 
@@ -28,6 +29,16 @@ _uncovered = [spec.key for spec in OP_TABLE if spec.synth_family is not None and
 _stale = [f for f in FAMILIES if f not in {spec.synth_family for spec in OP_TABLE}]
 if _uncovered or _stale:
     raise RuntimeError(f'ir.synth families out of step with the opcode table: uncovered {_uncovered}, stale {_stale}')
+
+
+def opcode_counts(progs) -> dict[int, int]:
+    """Per-opcode op counts over a corpus of :class:`DaisProgram` — the
+    coverage numbers of the ``--fuzz`` report."""
+    counts: dict[int, int] = {oc: 0 for spec in OP_TABLE for oc in spec.opcodes}
+    for prog in progs:
+        for oc in prog.opcode.tolist():
+            counts[int(oc)] = counts.get(int(oc), 0) + 1
+    return counts
 
 
 def _width_for(bound: int, f: int) -> int:
@@ -234,6 +245,45 @@ def random_program(
         fractionals=fr.astype(np.int32),
         tables=tuple(tables),
     )
+
+
+def random_pipeline(
+    rng: np.random.Generator,
+    n_stages: int = 3,
+    n_ops: int = 120,
+    families: tuple[str, ...] = FAMILIES,
+    n_levels: int | None = None,
+) -> tuple[DaisProgram, ...]:
+    """A random well-formed multi-stage pipeline (stage chain).
+
+    Each stage is a :func:`random_program` with mixed lane counts and
+    fractionals; consecutive stages agree on lane count, so the chain is a
+    valid ``runtime.run_pipeline`` / ``ir.fuse.fuse_binaries`` input.
+    Mid-pipeline stages keep the chained-boundary contract of
+    ``PipelineExecutor`` (a stage boundary is a pure arithmetic shift of live
+    output lanes): no output negation and no dead ``-1`` lanes except on the
+    final stage. Stages stay narrow (``wide=False``) so inter-stage codes are
+    exact in float64 on every backend.
+    """
+    assert n_stages >= 1
+    widths = [int(rng.integers(3, 7)) for _ in range(n_stages + 1)]
+    stages: list[DaisProgram] = []
+    for s in range(n_stages):
+        prog = random_program(
+            rng,
+            n_ops=n_ops,
+            n_in=widths[s],
+            n_out=widths[s + 1],
+            families=families,
+            wide=False,
+            n_levels=n_levels,
+        )
+        if s < n_stages - 1:
+            out_idxs = prog.out_idxs.copy()
+            out_idxs[out_idxs < 0] = int(prog.n_in)  # first non-input op: always present
+            prog = prog._replace(out_idxs=out_idxs, out_negs=np.zeros_like(prog.out_negs))
+        stages.append(prog)
+    return tuple(stages)
 
 
 def random_inputs(rng: np.random.Generator, prog: DaisProgram, n_samples: int) -> np.ndarray:

@@ -114,6 +114,18 @@ def relu_float(v, i: int | None = None, f: int | None = None, inv: bool = False,
     return v
 
 
+def qint_scale(qi: QInterval, scale: float) -> QInterval:
+    """Scale a QInterval by a (power-of-two) factor, preserving orientation."""
+    lo, hi = qi.min * scale, qi.max * scale
+    if scale < 0:
+        lo, hi = hi, lo
+    return QInterval(lo, hi, abs(qi.step * scale))
+
+
+def qint_neg(qi: QInterval) -> QInterval:
+    return QInterval(-qi.max, -qi.min, qi.step)
+
+
 def qint_add(q0: QInterval, q1: QInterval, shift: int, sub0: bool, sub1: bool) -> QInterval:
     """Interval of ``(+/-q0) + (+/-q1) * 2**shift``."""
     min0, max0 = (-q0.max, -q0.min) if sub0 else (q0.min, q0.max)

@@ -2,7 +2,8 @@
 
 - ``torch`` (the default): :class:`~.torch_backend.DaisExecutor` — the
   hand-written CUDA kernel on a CUDA device (``cuda_backend``), its plain
-  torch version on ``device='cpu'``;
+  torch version on ``device='cpu'``; ``mode`` forces one of its modes
+  (``'unroll'``, ``'scan'``, ``'level'``, ``'pallas'``);
 - ``numpy``: the vectorized int64 host interpreter (``numpy_backend``);
 - ``cpp``: the native C++ host interpreter, OpenMP over sample chunks
   (``da4ml_tpu_torch.native``; ``n_threads <= 0`` leaves the count to OpenMP).
@@ -29,29 +30,36 @@ from numpy.typing import NDArray
 from .. import telemetry
 
 BACKENDS = ('torch', 'numpy', 'cpp')
+#: the torch backend's executor modes (``'auto'`` resolves to one of these)
+MODES = ('unroll', 'scan', 'level', 'pallas')
+#: op-count ceiling of ``mode='unroll'`` (one Python step per op)
+UNROLL_LIMIT = 20_000
 
 
 def run_comb(
-    comb, data: NDArray[np.float64], backend: str = 'torch', device=None, n_threads: int = 0
+    comb, data: NDArray[np.float64], backend: str = 'torch', device=None, n_threads: int = 0, mode: str | None = None
 ) -> NDArray[np.float64]:
     """Execute a CombLogic over a (n_samples, n_in) batch with the given
-    backend; ``device`` is the torch backend's, ``n_threads`` the cpp one's.
-    One ``runtime.run_comb`` span and ``runtime.*`` sample per call."""
+    backend; ``device`` and ``mode`` are the torch backend's (``mode`` one
+    of ``MODES``, None for ``'auto'``), ``n_threads`` the cpp
+    one's. One ``runtime.run_comb`` span and ``runtime.*`` sample per call."""
+    if mode is not None and backend != 'torch':
+        raise ValueError(f"execution mode selection requires backend='torch', got {backend!r}")
     _metrics = telemetry.metrics_on()
     _t0 = time.perf_counter() if _metrics else 0.0
     with telemetry.span('runtime.run_comb', backend=backend, n_samples=len(data)):
-        result = _run_comb_backend(comb.to_binary(), data, backend, device, n_threads)
+        result = _run_comb_backend(comb.to_binary(), data, backend, device, n_threads, mode)
     if _metrics:
         telemetry.histogram('runtime.run_s').observe(time.perf_counter() - _t0)
         telemetry.counter('runtime.samples').inc(len(data))
     return result
 
 
-def _run_comb_backend(binary, data, backend: str, device, n_threads: int) -> NDArray[np.float64]:
+def _run_comb_backend(binary, data, backend: str, device, n_threads: int, mode: str | None = None) -> NDArray[np.float64]:
     if backend == 'torch':
         from .torch_backend import run_binary
 
-        return run_binary(binary, data, device=device)
+        return run_binary(binary, data, device=device, mode=mode or 'auto')
     if backend == 'numpy':
         from .numpy_backend import run_binary
 
@@ -84,4 +92,4 @@ def __getattr__(name: str):
     raise AttributeError(f'module {__name__!r} has no attribute {name!r}')
 
 
-__all__ = ['run_comb', 'program_from_binary', 'BACKENDS', *_TORCH_BACKEND]
+__all__ = ['run_comb', 'program_from_binary', 'BACKENDS', 'MODES', *_TORCH_BACKEND]

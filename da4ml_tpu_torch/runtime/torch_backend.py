@@ -6,16 +6,30 @@ so the kernel only ever sees fixed-point integer arithmetic: int32, or int64
 when the program's widths demand it (the rule of
 ``da4ml_tpu/runtime/jax_backend.py:493``, copied exactly).
 
-Execution goes through the hand-written CUDA kernel (``cuda_backend``) on a
-CUDA device. Its plain version is :class:`LevelPlan`, the ``level``
-lowering of ``DaisExecutor._build_level`` in ``jax_backend.py`` as torch ops:
-ops are packed into dependency levels (``ir.schedule``), each (level,
-family) group executes as a few vectorized torch ops — operand gathers,
-shift-by-multiply against precomputed pow2 vectors, fused add/sub via a sign
-vector, two's-complement wrap from per-op (width, signed) tables — and
-writes its contiguous rows of the execution buffer in place. The CUDA
-kernel's wrapper runs that plain version when, and only when, it is handed a
-CPU tensor.
+The executor runs one of four modes, the reference's ``MODES``:
+
+- ``'pallas'``: the hand-written CUDA kernel (``cuda_backend``), which plays
+  the reference's Pallas kernel. Its plain version is :class:`LevelPlan`;
+  the wrapper runs that plain version when, and only when, it is handed a
+  CPU tensor, and on a CUDA tensor it launches the kernel or raises;
+- ``'level'``: :class:`LevelPlan`, the lowering of
+  ``DaisExecutor._build_level`` in ``jax_backend.py`` as torch ops: ops are
+  packed into dependency levels (``ir.schedule``), each (level, family)
+  group executes as a few vectorized torch ops — operand gathers,
+  shift-by-multiply against precomputed pow2 vectors, fused add/sub via a
+  sign vector, two's-complement wrap from per-op (width, signed) tables —
+  and writes its contiguous rows of the execution buffer in place;
+- ``'unroll'``: :class:`UnrollPlan`, ``_build`` as torch ops, one step per
+  op with its constants folded to Python ints;
+- ``'scan'``: :class:`ScanPlan`, ``_build_scan`` as torch ops, one
+  table-driven step per op over device-resident metadata.
+
+``mode='auto'`` (the default) is ``'pallas'`` on a CUDA device and
+``'level'`` on the CPU; ``DA4ML_RUN_MODE`` replaces ``'auto'`` only. Force a
+mode with ``DaisExecutor(prog, mode='scan', device='cpu')`` (or on the card
+with ``device='cuda'``), ``run_comb(comb, data, mode=...)`` or
+``run_binary(binary, data, mode=...)``; ``force_i64=True`` runs a narrow
+program on the int64 path.
 
 The call boundary (``__call__``) is the reference's ``_run_batch`` with the
 conversion on the device: the float64 batch goes to the device, is checked
@@ -37,12 +51,12 @@ Entry points run on the card unless the caller passes ``device='cpu'``;
 ``device=None`` with no CUDA device raises instead of dropping to the CPU.
 
 Counterpart of ``DaisExecutor``, ``PipelineExecutor`` and ``run_pipeline`` in
-``da4ml_tpu/runtime/jax_backend.py``, without the ``unroll``/``scan`` modes,
-autotune, sharding and model-shard paths.
+``da4ml_tpu/runtime/jax_backend.py``, without the measured ``mode='auto'``
+(its static heuristic, autotune race and decision cache), the packed
+transfers, sharding and model-shard paths.
 
 Telemetry, as the reference records it: each call is one ``run.call`` span
-(``mode`` ``'pallas'`` — the CUDA kernel plays the reference's Pallas
-kernel — or ``'level'``, its plain version on the CPU, and the pipelines'
+(``mode`` the executor's resolved mode, and the pipelines'
 ``'pipeline-fused'`` / ``'pipeline-chained'``) whose device work runs inside
 ``telemetry.obs.profile.annotate('run.call')``, and one sample of the
 ``run.*`` metrics; ``run.device_s`` is the boundary's upload, kernel and
@@ -51,10 +65,10 @@ download, timed where the call already waits for its output.
 
 from __future__ import annotations
 
-from collections import OrderedDict
-from functools import lru_cache
-
+import os
 import time
+from collections import OrderedDict
+from functools import cached_property, lru_cache
 
 import numpy as np
 import torch
@@ -63,8 +77,9 @@ from numpy.typing import NDArray
 from .. import telemetry
 from ..ir.dais_binary import DaisProgram, decode
 from ..ir.optable import OP_TABLE, VECTOR_CLASS
-from ..ir.schedule import LevelSchedule, levelize_program
+from ..ir.schedule import LevelSchedule, levelize_program, operand_edges
 from ..telemetry.obs import profile as _prof
+from . import MODES, UNROLL_LIMIT
 
 
 class InvalidInputError(ValueError):
@@ -115,9 +130,10 @@ def validate_batch(data, n_in: int, what: str = 'DaisExecutor', finite: bool = T
 
 
 def op_meta(prog: DaisProgram, use_i64: bool) -> dict[str, NDArray]:
-    """Gathered per-op operand metadata shared by the level lowering and the
-    CUDA kernel's op records (numpy, original op order; garbage where a
-    family ignores a field)."""
+    """Gathered per-op operand metadata shared by the scan and level
+    lowerings and the CUDA kernel's op records (numpy, original op order;
+    garbage where a family ignores a field). The reference's ``_op_meta``,
+    field for field."""
     np_dt = np.int64 if use_i64 else np.int32
     n_ops = prog.n_ops
 
@@ -461,6 +477,367 @@ class LevelPlan:
 
 
 # ---------------------------------------------------------------------------
+# unroll lowering: ``_build`` of jax_backend.py as torch ops, one step per op
+# with every constant folded to a Python int
+# ---------------------------------------------------------------------------
+
+
+def _shl(v, s: int):
+    return v << s if s >= 0 else v >> (-s)
+
+
+def _wrap_int(v, signed: int, w: int):
+    mod = 1 << w
+    int_min = -(1 << (w - 1)) if signed else 0
+    return ((v - int_min) % mod) + int_min
+
+
+def _quantize_int(v, f_from: int, sg: int, w: int, f_to: int):
+    return _wrap_int(_shl(v, f_to - f_from), sg, w)
+
+
+def _unroll_step(prog: DaisProgram, i: int, np_dt):
+    """Op ``i`` of ``prog`` as ``step(buf, xT, tabs)`` -> its (batch,) row:
+    ``buf`` the rows of the ops before it, ``xT`` the (n_in, batch) inputs,
+    ``tabs`` the lookup tables on the device. The reference's op-by-op chain
+    (``jax_backend.DaisExecutor._build``), branch for branch."""
+    width = prog.width
+    oc = int(prog.opcode[i])
+    i0, i1 = int(prog.id0[i]), int(prog.id1[i])
+    dlo, dhi = int(prog.data_lo[i]), int(prog.data_hi[i])
+    sg, f = int(prog.signed[i]), int(prog.fractionals[i])
+    w = int(width[i])
+    # the 64-bit payload in the executor's dtype, as jnp.asarray gives it
+    const = int(np.array((dhi << 32) | (dlo & 0xFFFFFFFF), np.int64).astype(np_dt))
+
+    if oc == -1:
+        return lambda buf, xT, tabs: _wrap_int(xT[i0], sg, w)
+    if oc in (0, 1):
+        f0, f1 = int(prog.fractionals[i0]), int(prog.fractionals[i1])
+        a_shift = dlo + f0 - f1
+        g_shift = max(f0, f1 - dlo) - f
+        sub = oc == 1
+
+        def addsub(buf, xT, tabs):
+            v1 = buf[i0]
+            v2 = -buf[i1] if sub else buf[i1]
+            r = v1 + (v2 << a_shift) if a_shift > 0 else (v1 << -a_shift) + v2
+            return r >> g_shift if g_shift > 0 else r
+
+        return addsub
+    if oc in (2, -2, 3, -3):
+        f_from, neg, relu = int(prog.fractionals[i0]), oc < 0, abs(oc) == 2
+
+        def shift_wrap(buf, xT, tabs):
+            v = -buf[i0] if neg else buf[i0]
+            q = _quantize_int(v, f_from, sg, w, f)
+            return q.masked_fill(v < 0, 0) if relu else q
+
+        return shift_wrap
+    if oc == 4:
+        shift = f - int(prog.fractionals[i0])
+        return lambda buf, xT, tabs: _shl(buf[i0], shift) + const
+    if oc == 5:
+        return lambda buf, xT, tabs: xT.new_full((xT.shape[1],), const)
+    if oc in (6, -6):
+        ic, neg = dlo, oc < 0
+        f0, f1 = int(prog.fractionals[i0]), int(prog.fractionals[i1])
+        shift1 = f - f1 + dhi
+        shift0 = f - f0
+        sgc, wc = int(prog.signed[ic]), int(width[ic])
+        thr = 0 if sgc else 1 << (wc - 1)
+
+        def mux(buf, xT, tabs):
+            cond = buf[ic] < 0 if sgc else buf[ic] >= thr
+            v1 = -buf[i1] if neg else buf[i1]
+            r0 = _wrap_int(_shl(buf[i0], shift0), sg, w)
+            r1 = _wrap_int(_shl(v1, shift1), sg, w)
+            return torch.where(cond, r0, r1)
+
+        return mux
+    if oc == 7:
+        return lambda buf, xT, tabs: buf[i0] * buf[i1]
+    if oc == 8:
+        sg0, w0 = int(prog.signed[i0]), int(width[i0])
+        zero = -sg0 * (1 << (w0 - 1))
+        last = len(prog.tables[dlo]) - 1
+
+        def lookup(buf, xT, tabs):
+            index = buf[i0] - zero - dhi
+            return tabs[dlo].take(index.clamp(0, last).long())
+
+        return lookup
+    if oc in (9, -9):
+        neg = oc < 0
+        mask = (1 << int(width[i0])) - 1
+        if dlo not in (0, 1, 2):
+            raise ValueError(f'Unknown bit unary op data={dlo}')
+
+        def bit_unary(buf, xT, tabs):
+            v = -buf[i0] if neg else buf[i0]
+            if dlo == 0:
+                return ~v if sg else (~v) & mask
+            if dlo == 1:
+                return (v != 0).to(v.dtype)
+            return ((v & mask) == mask).to(v.dtype)
+
+        return bit_unary
+    if oc == 10:
+        f0, f1 = int(prog.fractionals[i0]), int(prog.fractionals[i1])
+        a_shift = dlo + f0 - f1
+        subop = dhi >> 24
+
+        def bit_binary(buf, xT, tabs):
+            v1, v2 = buf[i0], buf[i1]
+            if dhi & 1:
+                v1 = -v1
+            if dhi & 2:
+                v2 = -v2
+            if a_shift > 0:
+                v2 = v2 << a_shift
+            else:
+                v1 = v1 << -a_shift
+            return (v1 & v2) if subop == 0 else (v1 | v2) if subop == 1 else (v1 ^ v2)
+
+        return bit_binary
+    raise ValueError(f'Unknown opcode {oc} at index {i}')
+
+
+class UnrollPlan:
+    """The ``unroll`` lowering (``mode='unroll'``): ``_build`` of the JAX
+    package's executor as torch ops. Each op is one step whose operand ids,
+    shifts, widths and constants are Python ints folded in at build time
+    (``_unroll_step``); the steps run in program order over a list of
+    (batch,) rows, and a row is dropped after its last reader so the working
+    set stays the live values. ``plan(x)`` maps a (batch, n_in) integer
+    tensor on any device to (batch, n_out), in the executor's dtype."""
+
+    def __init__(self, ex: 'DaisExecutor'):
+        prog = ex.prog
+        self.dtype = ex.dtype
+        self.prog = prog
+        self.steps = [_unroll_step(prog, i, ex.np_dtype) for i in range(prog.n_ops)]
+        # each op's last reader (itself when none reads it); outputs live to the end
+        n = prog.n_ops
+        last = np.arange(n, dtype=np.int64)
+        readers, operands = operand_edges(prog.opcode, prog.id0, prog.id1, prog.data_lo)
+        np.maximum.at(last, operands, readers)
+        last[prog.out_idxs[prog.out_idxs >= 0].astype(np.int64)] = n
+        self.dead: list[list[int]] = [[] for _ in range(n)]
+        for j, at in enumerate(last.tolist()):
+            if at < n:
+                self.dead[at].append(j)
+        self._tabs: dict[torch.device, list[torch.Tensor]] = {}
+        self._np_tables = [np.asarray(t, ex.np_dtype) for t in prog.tables]
+
+    def _tables(self, device: torch.device) -> list[torch.Tensor]:
+        hit = self._tabs.get(device)
+        if hit is None:
+            hit = self._tabs[device] = [torch.from_numpy(t).to(device) for t in self._np_tables]
+        return hit
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != self.dtype or x.dim() != 2:
+            raise ValueError(f'unroll plan takes a 2-D {self.dtype} tensor, got {x.dtype} of shape {tuple(x.shape)}')
+        prog, tabs = self.prog, self._tables(x.device)
+        xT = x.t().contiguous()
+        buf: list = [None] * prog.n_ops
+        for i, (step, dead) in enumerate(zip(self.steps, self.dead)):
+            buf[i] = step(buf, xT, tabs)
+            for j in dead:
+                buf[j] = None
+        outs = []
+        for j in range(prog.n_out):
+            idx = int(prog.out_idxs[j])
+            if idx < 0:
+                outs.append(x.new_zeros((x.shape[0],)))
+                continue
+            v = buf[idx]
+            outs.append(-v if prog.out_negs[j] else v)
+        if not outs:
+            return x.new_zeros((x.shape[0], 0))
+        return torch.stack(outs, dim=1)
+
+
+# ---------------------------------------------------------------------------
+# scan lowering: ``_build_scan`` of jax_backend.py as torch ops, one
+# table-driven step per op over a dense buffer
+# ---------------------------------------------------------------------------
+
+
+def _shl_t(v, s):
+    """Shift by a traced amount: left by max(s, 0), then right by max(-s, 0)."""
+    return torch.bitwise_left_shift(v, torch.clamp_min(s, 0)) >> torch.clamp_min(-s, 0)
+
+
+def _wrap_t(v, sg, w):
+    mod = 1 << w
+    int_min = torch.where(sg != 0, -(1 << (w - 1)), 0)
+    return ((v - int_min) % mod) + int_min
+
+
+class _ScanRow:
+    """Op ``t``'s row of the scan table ``P``: ``p[k]`` is field ``k`` as a
+    one-element view of its device column (no copy, no launch)."""
+
+    __slots__ = ('P', 't')
+
+    def __init__(self, P: dict, t: int):
+        self.P, self.t = P, t
+
+    def __getitem__(self, k: str) -> torch.Tensor:
+        return self.P[k][self.t : self.t + 1]
+
+
+def _scan_copy(buf, xT, p):
+    return _wrap_t(xT.index_select(0, p['id0']), p['sg'], p['w'])
+
+
+def _scan_addsub(buf, xT, p):
+    x0, x1 = buf.index_select(0, p['id0']), buf.index_select(0, p['id1'])
+    v2 = torch.where(p['issub'] != 0, -x1, x1)
+    a = p['a_shift']
+    r = torch.where(a > 0, x0 + _shl_t(v2, torch.clamp_min(a, 0)), _shl_t(x0, torch.clamp_min(-a, 0)) + v2)
+    g = p['g_shift']
+    return torch.where(g > 0, r >> torch.clamp_min(g, 0), r)
+
+
+def _scan_shift_wrap(relu: bool):
+    def branch(buf, xT, p):
+        x0 = buf.index_select(0, p['id0'])
+        v = torch.where(p['neg'] != 0, -x0, x0)
+        q = _wrap_t(_shl_t(v, p['f'] - p['f0']), p['sg'], p['w'])
+        return torch.where(v < 0, 0, q) if relu else q
+
+    return branch
+
+
+def _scan_const_add(buf, xT, p):
+    return _shl_t(buf.index_select(0, p['id0']), p['f'] - p['f0']) + p['const']
+
+
+def _scan_const(buf, xT, p):
+    return p['const']  # broadcast over the row when it is written
+
+
+def _scan_msb_mux(buf, xT, p):
+    vc = buf.index_select(0, p['dlo'])
+    cond = torch.where(p['sgc'] != 0, vc < 0, vc >= (1 << (p['wc'] - 1)))
+    x0, x1 = buf.index_select(0, p['id0']), buf.index_select(0, p['id1'])
+    v1 = torch.where(p['neg'] != 0, -x1, x1)
+    r0 = _wrap_t(_shl_t(x0, p['mux_s0']), p['sg'], p['w'])
+    r1 = _wrap_t(_shl_t(v1, p['mux_s1']), p['sg'], p['w'])
+    return torch.where(cond, r0, r1)
+
+
+def _scan_mul(buf, xT, p):
+    return buf.index_select(0, p['id0']) * buf.index_select(0, p['id1'])
+
+
+def _scan_lookup(buf, xT, p):
+    index = buf.index_select(0, p['id0']) - p['lut_zero'] - p['dhi'] + p['tab_off']
+    index = torch.clamp(index, p['tab_off'], p['tab_end'])
+    return p.P['flat_tab'].take(index.long())
+
+
+def _scan_bit_unary(buf, xT, p):
+    x0 = buf.index_select(0, p['id0'])
+    v = torch.where(p['neg'] != 0, -x0, x0)
+    mask = p['mask0']
+    r_not = torch.where(p['sg'] != 0, ~v, (~v) & mask)
+    r_any = (v != 0).to(v.dtype)
+    r_all = ((v & mask) == mask).to(v.dtype)
+    d = p['dlo']
+    return torch.where(d == 0, r_not, torch.where(d == 1, r_any, r_all))
+
+
+def _scan_bit_binary(buf, xT, p):
+    x0, x1 = buf.index_select(0, p['id0']), buf.index_select(0, p['id1'])
+    v1 = torch.where(p['bb_neg0'] != 0, -x0, x0)
+    v2 = torch.where(p['bb_neg1'] != 0, -x1, x1)
+    a = p['a_shift']
+    v2 = torch.where(a > 0, _shl_t(v2, torch.clamp_min(a, 0)), v2)
+    v1 = torch.where(a > 0, v1, _shl_t(v1, torch.clamp_min(-a, 0)))
+    so = p['bb_subop']
+    return torch.where(so == 0, v1 & v2, torch.where(so == 1, v1 | v2, v1 ^ v2))
+
+
+#: the scan step's branches, keyed by ``OpSpec.lower`` like ``LEVEL_EMITTERS``
+SCAN_BRANCHES: dict[str, object] = {
+    'copy': _scan_copy,
+    'addsub': _scan_addsub,
+    'relu': _scan_shift_wrap(relu=True),
+    'quantize': _scan_shift_wrap(relu=False),
+    'const_add': _scan_const_add,
+    'const': _scan_const,
+    'msb_mux': _scan_msb_mux,
+    'mul': _scan_mul,
+    'lookup': _scan_lookup,
+    'bit_unary': _scan_bit_unary,
+    'bit_binary': _scan_bit_binary,
+}
+
+if set(SCAN_BRANCHES) != set(LEVEL_EMITTERS):
+    raise RuntimeError('scan branches out of step with the opcode table lower column')
+
+
+class ScanPlan:
+    """The ``scan`` lowering (``mode='scan'``): ``_build_scan`` of the JAX
+    package's executor as torch ops.
+
+    The per-op metadata of ``op_meta`` is a table of device columns (the
+    reference's scan table ``P``: gather ids as int64, the rest in the
+    executor's dtype), moved to a device on its first use there. One step
+    per op runs in program order against a dense ``[n_ops, batch]`` buffer:
+    its operands are gathered from the buffer by the ``id0``/``id1`` (and
+    mux ``dlo``) columns, its shifts are traced from the table (``_shl_t``:
+    left by max(s, 0), right by max(-s, 0)), ``wrap`` reads the per-op
+    ``sg``/``w``, and the result is written to row ``t``. ``lax.switch`` on
+    the op's ``branch`` becomes a host-side switch over the branch column,
+    one of ``SCAN_BRANCHES`` a step, so each step launches only its own
+    family's ops. ``plan(x)`` maps a (batch, n_in) integer tensor on any
+    device to (batch, n_out), in the executor's dtype."""
+
+    #: table columns used as gather indices (int64 on the device)
+    INDEX_FIELDS = ('id0', 'id1', 'dlo')
+    #: table columns in the executor's dtype
+    VALUE_FIELDS = ('neg', 'issub', 'f', 'sg', 'w', 'f0', 'a_shift', 'g_shift', 'const', 'sgc', 'wc', 'mux_s0',
+                    'mux_s1', 'tab_off', 'tab_end', 'lut_zero', 'mask0', 'bb_neg0', 'bb_neg1', 'bb_subop',
+                    'dhi')  # fmt: skip
+
+    def __init__(self, ex: 'DaisExecutor'):
+        prog, m = ex.prog, ex.meta
+        self.dtype = ex.dtype
+        self.n_ops, self.n_in = prog.n_ops, prog.n_in
+        self.branches = [SCAN_BRANCHES[OP_TABLE[int(b)].lower] for b in m['branch']]
+        self.table = {k: np.ascontiguousarray(m[k], np.int64) for k in self.INDEX_FIELDS}
+        self.table.update({k: np.ascontiguousarray(m[k].astype(ex.np_dtype)) for k in self.VALUE_FIELDS})
+        self.table['flat_tab'] = np.ascontiguousarray(m['flat_tab'])
+        out_idx = prog.out_idxs.astype(np.int64)
+        self.table['out_rows'] = np.maximum(out_idx, 0)
+        self.table['out_sign'] = np.where(out_idx < 0, 0, np.where(prog.out_negs != 0, -1, 1)).astype(ex.np_dtype)[:, None]
+        self._on: dict[torch.device, dict[str, torch.Tensor]] = {}
+
+    def _table(self, device: torch.device) -> dict[str, torch.Tensor]:
+        hit = self._on.get(device)
+        if hit is None:
+            hit = self._on[device] = {k: torch.from_numpy(v).to(device) for k, v in self.table.items()}
+        return hit
+
+    def __call__(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype != self.dtype or x.dim() != 2:
+            raise ValueError(f'scan plan takes a 2-D {self.dtype} tensor, got {x.dtype} of shape {tuple(x.shape)}')
+        P = self._table(x.device)
+        batch = x.shape[0]
+        # an all-const program keeps one dummy lane, as the reference does
+        xT = x.t().contiguous() if self.n_in else x.new_zeros((1, batch))
+        buf = torch.empty((max(self.n_ops, 1), batch), dtype=self.dtype, device=x.device)
+        for t, branch in enumerate(self.branches):
+            buf[t : t + 1] = branch(buf, xT, _ScanRow(P, t))
+        return (buf.index_select(0, P['out_rows']) * P['out_sign']).t().contiguous()
+
+
+# ---------------------------------------------------------------------------
 # the call boundary: chunked, overlapped transfers
 # ---------------------------------------------------------------------------
 
@@ -626,37 +1003,89 @@ class DaisExecutor:
     """A DAIS program as a batched integer kernel on one device.
 
     ``fn_int`` maps a (batch, n_in) integer tensor to (batch, n_out) through
-    the CUDA kernel's wrapper (the plain ``level`` version for a CPU tensor);
-    ``__call__`` wraps it with the call boundary (``boundary_call``).
+    the plan of the executor's ``mode``; ``__call__`` wraps it with the call
+    boundary (``boundary_call``).
+
+    ``force_i64`` forces (True) or forbids (False) the int64 path; None
+    takes it when the program's widths demand it. ``mode`` is one of
+    ``MODES`` or ``'auto'``:
+
+    - ``'pallas'``: the CUDA kernel K1 (``cuda_backend.DaisKernel``), the
+      counterpart of the reference's Pallas kernel. On a CUDA tensor it
+      launches K1 or raises; nothing falls back. On a CPU tensor the wrapper
+      runs its plain version, as the reference runs Pallas in interpret mode;
+    - ``'level'``: :class:`LevelPlan`, K1's plain version, as torch ops;
+    - ``'unroll'``: :class:`UnrollPlan`, one step per op with its constants
+      folded; refuses programs over ``UNROLL_LIMIT`` ops;
+    - ``'scan'``: :class:`ScanPlan`, one table-driven step per op;
+    - ``'auto'``: ``'pallas'`` on a CUDA device, ``'level'`` on the CPU. The
+      reference's static heuristic and measured race among the modes are not
+      ported; ``DA4ML_RUN_MODE`` (one of ``MODES``) replaces ``'auto'``, never
+      an explicit mode.
+
+    ``self.mode`` is the resolved mode. The call boundary, the chunking and
+    the telemetry are the same in every mode.
     """
 
-    def __init__(self, prog: DaisProgram, device=None):
+    #: ``runtime.UNROLL_LIMIT``, on the class as on the reference's executor
+    UNROLL_LIMIT = UNROLL_LIMIT
+
+    def __init__(self, prog: DaisProgram, force_i64: bool | None = None, mode: str = 'auto', device=None):
         prog.validate()
         self.prog = prog
+        if mode not in ('auto', *MODES):
+            raise ValueError(f"mode must be 'auto', 'unroll', 'scan', 'level' or 'pallas', got {mode!r}")
+        if force_i64 is not None and not isinstance(force_i64, (bool, np.bool_)):
+            raise TypeError(f'force_i64 must be None, True or False, got {force_i64!r} (pass the device as device=)')
         self.device = resolve_device(device)
         # +2 headroom: shift_add aligns operands before the narrowing shift
-        self.use_i64 = prog.max_width + 2 > 31
+        wide = prog.max_width + 2 > 31
+        self.use_i64 = wide if force_i64 is None else bool(force_i64)
         self.dtype = torch.int64 if self.use_i64 else torch.int32
         self.np_dtype = np.int64 if self.use_i64 else np.int32
+        env_mode = _env_mode().strip().lower()
+        if mode == 'auto' and env_mode in MODES:
+            mode = env_mode
+        if mode == 'auto':
+            mode = 'pallas' if self.device.type == 'cuda' else 'level'
+        if mode == 'unroll' and prog.n_ops > self.UNROLL_LIMIT:
+            raise ValueError(
+                f"mode='unroll' refuses a {prog.n_ops}-op program (compile time grows with program "
+                f"size; UNROLL_LIMIT={self.UNROLL_LIMIT}). Use mode='level'."
+            )
+        self.mode = mode
         self.meta = op_meta(prog, self.use_i64)
-        self.schedule = levelize_program(prog, sort_key=self.meta['branch'].astype(np.int64))
-        self.plain = LevelPlan(self)
         self._in_scale = self._inp_scale()
         self._out_sf = self._out_scale()
         self._scales: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
-
-        from .cuda_backend import DaisKernel
-
-        # the wrapper packs the kernel's records at its first launch: a CPU
-        # executor never builds them
-        self.kernel = DaisKernel(self)
-        self.mode = 'pallas' if self.device.type == 'cuda' else 'level'
+        #: the mode's integer function (K1's wrapper packs its records at its
+        #: first launch, so a CPU executor never builds them)
+        self.plan = {'unroll': UnrollPlan, 'scan': ScanPlan, 'level': lambda ex: ex.plain,
+                     'pallas': lambda ex: ex.kernel}[mode](self)  # fmt: skip
         self._compile_recorded = False
         telemetry.counter(f'run.mode.{self.mode}').inc()
 
+    @cached_property
+    def schedule(self) -> LevelSchedule:
+        """The level schedule of ``LevelPlan`` and K1 (built on first use)."""
+        return levelize_program(self.prog, sort_key=self.meta['branch'].astype(np.int64))
+
+    @cached_property
+    def plain(self) -> LevelPlan:
+        """K1's plain version (``mode='level'``), built on first use."""
+        return LevelPlan(self)
+
+    @cached_property
+    def kernel(self):
+        """K1's wrapper (built on first use)."""
+        from .cuda_backend import DaisKernel
+
+        return DaisKernel(self)
+
     def fn_int(self, x: torch.Tensor) -> torch.Tensor:
-        """(batch, n_in) integer tensor -> (batch, n_out), on x's device."""
-        return self.kernel(x)
+        """(batch, n_in) integer tensor -> (batch, n_out), on x's device,
+        through the plan of ``self.mode``."""
+        return self.plan(x)
 
     # -- host boundary -----------------------------------------------------
 
@@ -827,15 +1256,23 @@ def _cached(cache: OrderedDict, key, build):
     return hit
 
 
-def executor_for_binary(binary: NDArray[np.int32], device=None) -> DaisExecutor:
-    """A cached executor for a DAIS binary on ``device`` (LRU, 256 entries)."""
+def _env_mode() -> str:
+    """``DA4ML_RUN_MODE`` as set (a mode replaces ``'auto'``; the executor
+    caches key on it)."""
+    return os.environ.get('DA4ML_RUN_MODE', '')
+
+
+def executor_for_binary(binary: NDArray[np.int32], mode: str = 'auto', device=None) -> DaisExecutor:
+    """A cached executor for a DAIS binary in ``mode`` on ``device`` (LRU,
+    256 entries), keyed by the binary, the mode, ``DA4ML_RUN_MODE`` and the
+    device."""
     dev = resolve_device(device)
-    key = (np.asarray(binary, dtype=np.int32).tobytes(), str(dev))
-    return _cached(_executor_cache, key, lambda: DaisExecutor(decode(binary), device=dev))
+    key = (np.asarray(binary, dtype=np.int32).tobytes(), mode, _env_mode(), str(dev))
+    return _cached(_executor_cache, key, lambda: DaisExecutor(decode(binary), mode=mode, device=dev))
 
 
-def run_binary(binary: NDArray[np.int32], data: NDArray[np.float64], device=None) -> NDArray[np.float64]:
-    return executor_for_binary(binary, device=device)(data)
+def run_binary(binary: NDArray[np.int32], data: NDArray[np.float64], device=None, mode: str = 'auto') -> NDArray[np.float64]:
+    return executor_for_binary(binary, mode=mode, device=device)(data)
 
 
 def _pipeline_key(binaries: list[NDArray[np.int32]]) -> bytes:
@@ -846,20 +1283,21 @@ def _pipeline_key(binaries: list[NDArray[np.int32]]) -> bytes:
     )
 
 
-def fused_executor_for_binaries(binaries: list[NDArray[np.int32]], device=None) -> DaisExecutor:
-    """A cached executor over the IR-fused pipeline on ``device``: the
-    per-stage binaries merged into ONE DAIS program (``ir.fuse.fuse_binaries``),
-    so the kernel runs the whole pipeline in one launch a chunk."""
+def fused_executor_for_binaries(binaries: list[NDArray[np.int32]], mode: str = 'auto', device=None) -> DaisExecutor:
+    """A cached executor over the IR-fused pipeline in ``mode`` on
+    ``device``: the per-stage binaries merged into ONE DAIS program
+    (``ir.fuse.fuse_binaries``), so the kernel runs the whole pipeline in one
+    launch a chunk. Keyed as ``executor_for_binary``'s cache."""
     dev = resolve_device(device)
 
     def build():
         from ..ir.fuse import fuse_binaries
 
-        ex = DaisExecutor(decode(fuse_binaries(binaries)), device=dev)
+        ex = DaisExecutor(decode(fuse_binaries(binaries)), mode=mode, device=dev)
         telemetry.counter('run.mode.fused_ir').inc()
         return ex
 
-    return _cached(_fused_ir_cache, (_pipeline_key(binaries), str(dev)), build)
+    return _cached(_fused_ir_cache, (_pipeline_key(binaries), mode, _env_mode(), str(dev)), build)
 
 
 def pipeline_executor_for_binaries(binaries: list[NDArray[np.int32]], device=None) -> PipelineExecutor:
@@ -877,6 +1315,6 @@ def run_pipeline(binaries: list[NDArray[np.int32]], data: NDArray[np.float64], d
     and ``fused='ir'`` first merges the stages into ONE DAIS program at the
     IR level."""
     if fused == 'ir':
-        return fused_executor_for_binaries(binaries, device)(data)
+        return fused_executor_for_binaries(binaries, device=device)(data)
     ex = pipeline_executor_for_binaries(binaries, device)
     return ex(data) if fused else ex.chained(data)

@@ -126,6 +126,10 @@ def csd_terms(x: float):
             yield digit * w * unit
 
 
+# kept under the historical name for callers of the CSD generator
+to_csd_powers = csd_terms
+
+
 class FixedVariable:
     __is_input__ = False
 

@@ -792,6 +792,10 @@ class LazyUnaryArray(FixedVariableArray):
         return 'Lazy' + super().__repr__()
 
 
+# Alias for users coming from the reference API
+RetardedFixedVariableArray = LazyUnaryArray
+
+
 class _ArgsortDelayedIndex:
     """Placeholder returned by np.argsort; indexing another array with it
     lowers to a payload-carrying sort."""

@@ -367,3 +367,7 @@ def comb_trace(inputs, outputs, keep_dead_inputs: bool = False) -> CombLogic:
         if sp:
             sp.set(n_ops=len(result.ops))
         return result
+
+
+# retained name for external callers of the collection pass
+gather_variables = collect_graph

@@ -39,7 +39,7 @@ from da4ml_tpu_torch.ir.synth import random_program
 def test_conformance_corpus_all_modes_clean():
     report, diags = run_conformance_corpus(n_programs=3, n_ops=150, n_samples=48, seed=0, device='cpu')
     assert report['ok'], [str(d) for d in diags]
-    assert report['modes'] == ['numpy', 'cpp', 'torch']
+    assert report['modes'] == ['numpy', 'cpp', 'unroll', 'scan', 'level', 'pallas']
     assert set(report['per_opcode']) == {str(oc) for oc in DAIS_V1_OPCODES}
     assert all(info['mismatches'] == 0 for info in report['per_opcode'].values())
     json.dumps(report)  # the report is a JSON-ready artifact
@@ -83,12 +83,15 @@ def test_conformance_catches_broken_backend(monkeypatch):
     assert d.to_dict()['opcode_family'] == 'mul'
 
 
-@pytest.mark.parametrize('mode', ['cpp', 'torch'])
-def test_conformance_reports_a_broken_output_binding(monkeypatch, mode):
-    """The modes without an execution buffer are attributed through the
-    output binding; a backend that raises is a C401 too, not a skip."""
+@pytest.mark.parametrize('backend', ['cpp', 'torch'])
+def test_conformance_reports_a_broken_output_binding(monkeypatch, backend):
+    """The modes without an execution buffer (cpp, and the torch backend's
+    four executor modes) are attributed through the output binding; a
+    backend that raises is a C401 too, not a skip."""
     import da4ml_tpu_torch.analysis.conformance as conf
+    from da4ml_tpu_torch.runtime import MODES
 
+    modes = MODES if backend == 'torch' else (backend,)
     prog = random_program(np.random.default_rng(4), n_ops=80, n_in=5, n_out=4)
     real = conf._run_mode
 
@@ -99,15 +102,19 @@ def test_conformance_reports_a_broken_output_binding(monkeypatch, mode):
         return out, buf
 
     monkeypatch.setattr(conf, '_run_mode', off_by_one)
-    (d,) = check_conformance(prog, modes=(mode,), n_samples=16, device='cpu')
-    assert d.rule == 'C401' and f'first divergent output 2 (bound to op {int(prog.out_idxs[2])})' in d.message
+    diags = check_conformance(prog, modes=modes, n_samples=16, device='cpu')
+    assert len(diags) == len(modes)
+    for d in diags:
+        assert d.rule == 'C401' and f'first divergent output 2 (bound to op {int(prog.out_idxs[2])})' in d.message
 
     def raising(p, m, data, device=None):
         raise RuntimeError('kernel build failed')
 
     monkeypatch.setattr(conf, '_run_mode', raising)
-    (d,) = check_conformance(prog, modes=(mode,), n_samples=16, device='cpu')
-    assert d.rule == 'C401' and f"backend '{mode}' raised RuntimeError" in d.message
+    diags = check_conformance(prog, modes=modes, n_samples=16, device='cpu')
+    assert [d.rule for d in diags] == ['C401'] * len(modes)
+    for mode, d in zip(modes, diags):
+        assert f"backend '{mode}' raised RuntimeError" in d.message
 
 
 def test_conformance_is_opt_in_pass(monkeypatch):

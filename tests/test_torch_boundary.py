@@ -174,10 +174,11 @@ def test_executor_caches_are_lru(monkeypatch):
     assert tb._pipeline_key([b0, b1]) != tb._pipeline_key([np.concatenate([b0, b1])])
     monkeypatch.setattr(tb, '_EXECUTOR_CACHE_CAP', 2)
     monkeypatch.setattr(tb, '_executor_cache', OrderedDict())
-    e0, e1 = tb.executor_for_binary(b0, 'cpu'), tb.executor_for_binary(b1, 'cpu')
-    assert tb.executor_for_binary(b0, torch.device('cpu')) is e0  # a hit: b1 is now the least recently used
-    tb.executor_for_binary(b2, 'cpu')
-    assert list(tb._executor_cache) == [(b0.tobytes(), 'cpu'), (b2.tobytes(), 'cpu')]
-    assert tb.executor_for_binary(b1, 'cpu') is not e1
+    monkeypatch.delenv('DA4ML_RUN_MODE', raising=False)
+    e0, e1 = tb.executor_for_binary(b0, device='cpu'), tb.executor_for_binary(b1, device='cpu')
+    assert tb.executor_for_binary(b0, device=torch.device('cpu')) is e0  # a hit: b1 is now the least recently used
+    tb.executor_for_binary(b2, device='cpu')
+    assert list(tb._executor_cache) == [(b0.tobytes(), 'auto', '', 'cpu'), (b2.tobytes(), 'auto', '', 'cpu')]
+    assert tb.executor_for_binary(b1, device='cpu') is not e1
     data = random_inputs(np.random.default_rng(3), progs[1], 20)
     assert np.array_equal(tb.run_binary(b1, data, device='cpu'), run_program(decode(b1), data))

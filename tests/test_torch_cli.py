@@ -235,7 +235,7 @@ def test_verify_fuzz_clean(tmp_path, capsys):
     rc, text = _run(tmain, ['verify', '--fuzz', '4', '--device', 'cpu', '--out', str(out)], capsys)
     assert rc == 0, text
     report = json.loads(out.read_text())
-    assert report['ok'] and report['conformance']['modes'] == ['numpy', 'cpp', 'torch']
+    assert report['ok'] and report['conformance']['modes'] == ['numpy', 'cpp', 'unroll', 'scan', 'level', 'pallas']
     assert report['transfer_soundness']['per_family']['add']['counterexamples'] == 0
     assert text.splitlines()[-1] == 'opcode conformance: ok'
 

@@ -362,7 +362,7 @@ def test_narrow_programs_keep_16_bit_fields():
     ex = DaisExecutor(decode(comb.to_binary()), device='cpu')
     assert ex.kernel.data.field_bits == 16 and ex.kernel.record_bytes == 16 and not ex.kernel.data.pool['hi'].any()
     big = DaisExecutor(_port(random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6, n_levels=3,
-                                            wide=True)), 'cpu')  # fmt: skip
+                                            wide=True)), device='cpu')  # fmt: skip
     assert big.kernel.data.slot_unit == 1 and big.kernel.data.field_bits == 16
 
 
@@ -574,16 +574,16 @@ def test_smoke_corpus_reaches_both_buffer_paths():
     geometry sends to the global-memory scratch."""
     from da4ml_tpu_torch.ir.synth import random_program as port_random_program
 
-    big = DaisExecutor(port_random_program(np.random.default_rng(1), n_ops=1500, n_in=8, n_out=6, n_levels=5), 'cpu')
+    big = DaisExecutor(port_random_program(np.random.default_rng(1), n_ops=1500, n_in=8, n_out=6, n_levels=5), device='cpu')
     g = cuda_backend.launch_geometry(big.kernel.data.n_slots, big.kernel.itemsize, big.kernel.phase_widths, _H100_SMEM)
     assert big.dtype == torch.int32 and g.scratch_rows is None and g.smem > 48 * 1024
     wide = DaisExecutor(
-        port_random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6, n_levels=3, wide=True), 'cpu'
+        port_random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6, n_levels=3, wide=True), device='cpu'
     )
     assert wide.dtype == torch.int64
     g = cuda_backend.launch_geometry(wide.kernel.data.n_slots, wide.kernel.itemsize, wide.kernel.phase_widths, _H100_SMEM)
     assert g.scratch_rows is not None
-    narrow = DaisExecutor(port_random_program(np.random.default_rng(0), n_ops=20, n_in=2, n_out=2, n_levels=18), 'cpu')
+    narrow = DaisExecutor(port_random_program(np.random.default_rng(0), n_ops=20, n_in=2, n_out=2, n_levels=18), device='cpu')
     g = cuda_backend.launch_geometry(narrow.kernel.data.n_slots, 4, narrow.kernel.phase_widths, _H100_SMEM)
     assert (g.tiles, g.warps, g.scratch_rows) == (2, 1, None)
     rng = np.random.default_rng(6)

@@ -150,13 +150,16 @@ def test_pipeline_corruption_same_diagnostics(solved, name):
 
 
 def test_conformance_pass_is_not_silently_skipped(rich, monkeypatch):
-    """The opt-in pass runs every mode on ``device``; a ``'torch'`` mode that
+    """The opt-in pass runs every mode on ``device``; each executor mode that
     cannot run (no CUDA device here) is a C401 diagnostic, never a skip."""
     assert tanalysis.verify(rich[0], passes=('conformance',), device='cpu').ok
     monkeypatch.setattr('torch.cuda.is_available', lambda: False)
     result = tanalysis.verify(rich[0], passes=('conformance',))
     c401 = result.by_rule('C401')
-    assert len(c401) == 1 and "backend 'torch' raised RuntimeError" in c401[0].message, result.format_text()
+    modes = ('unroll', 'scan', 'level', 'pallas')
+    assert len(c401) == len(modes), result.format_text()
+    for mode, d in zip(modes, c401):
+        assert f"backend '{mode}' raised RuntimeError" in d.message, result.format_text()
     with pytest.raises(ValueError, match='unknown analysis pass'):
         tanalysis.verify(rich[0], passes=('nope',))
 
