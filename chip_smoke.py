@@ -195,7 +195,27 @@ on them against its plain PyTorch version:
    ``MODES_TWIN_REF_SAMPLES`` to the reference interpreter; ``mode='unroll'``
    refusing the 256x256 conv front end (over ``UNROLL_LIMIT`` ops) with the
    reference's message. It runs beside the twin's g++ build, after phase 16;
-18. the command line, each step ``python -m da4ml_tpu_torch`` in a child
+18. ``mode='auto'`` on the card, with ``DA4ML_RUN_MODE`` unset: the
+   flagship, config 5 (``'torch'``), the transformer block's fused program
+   (``fused_executor_for_binaries``, which races even a small program) and
+   the wide conv front end, each raced at construction; for each, the
+   candidates, each measured candidate's build seconds and samples per
+   second at the race batch, the skipped candidates with their bounds, the
+   winner and the race's wall seconds; a second construction answered from
+   memory and a third, the in-process decisions cleared, from the file
+   (``run.autotune`` unchanged, ``run.mode_cache_hit`` up by two); each
+   skipped candidate whose bound is at most ``AUTO_TIMED_BOUND_S`` timed
+   once at the race batch, above its bound and slower than the winner; the
+   winner at the full sample count equal to the reference interpreter (the
+   flagship, config 5 and the wide conv on the samples of phases 5, 9 and
+   11, held to the outputs those phases held to it), timed with CUDA
+   events, and K1 forced beside it where the winner is not K1; phase 17's full-size
+   times of the skipped modes beside their bounds; a synth program under
+   ``AUTOTUNE_MIN_OPS`` ops taking the static answer (K1) without a race;
+   a child process (``chip_smoke.py --auto-child FILE``) answered from the
+   same decisions with no race. It runs beside the twin's g++ build, after
+   phase 17;
+19. the command line, each step ``python -m da4ml_tpu_torch`` in a child
    process with its exit code checked: the flagship saved as ``.json`` and
    converted to HLS projects (``vitis``, ``hlslib``, ``oneapi``) equal to
    the JAX package's (``CLI_DIGESTS``), then converted with
@@ -213,7 +233,14 @@ on them against its plain PyTorch version:
    to K2's plain version, K1 on both programs, the emulator the command
    line built held to K1, and the g++ build, emulator and K1 times
    (``cli_flagship``, ``cli_twin``);
-19. checks that neither jax nor da4ml_tpu was imported.
+20. checks that neither jax nor da4ml_tpu was imported.
+
+The run keeps its ``mode='auto'`` decisions in a fresh temporary directory
+(``DA4ML_TORCH_CACHE``, set before anything is built and inherited by every
+child), so no run reads another run's decisions. Every phase but the 18th
+runs with ``DA4ML_RUN_MODE=pallas``, which replaces only ``'auto'``: the
+executors those phases build with the default mode, and the command line's
+children, keep K1 as they did before ``mode='auto'`` raced.
 
 Every count is set to 0 just before its path is driven and read just after;
 the kernel line gives each kernel's main-path launches summed over the
@@ -228,7 +255,8 @@ and calls and read just after), ``telemetry_overhead`` and
 ``telemetry_endpoint``; the convert child's launches stay in the child;
 the executor-modes phase's as ``modes_flagship``, ``modes_corpus``,
 ``modes_config5`` and ``modes_twin``, only the forced ``mode='pallas'`` calls whose outputs are
-checked).
+checked; the ``mode='auto'`` phase's as ``auto_<program>``: the race's K1
+candidate calls and the full-size call, whichever mode won).
 
 Prints the wall time of each phase, the kernel table as one JSON line,
 the card line, and last
@@ -238,6 +266,8 @@ there is no CUDA device or any phase fails.
 Usage: ``python3 chip_smoke.py`` from the repository root (one card).
 ``python3 chip_smoke.py --profile-child DIR`` is the telemetry phase's
 profile run, started by the phase itself.
+``python3 chip_smoke.py --auto-child FILE`` is the ``mode='auto'`` phase's
+child, started by the phase itself.
 """
 
 from __future__ import annotations
@@ -318,6 +348,14 @@ MODES_CONFIG5_SAMPLES = 1 << 16
 MODES_CONFIG5_REF_SAMPLES = 4096
 MODES_TWIN_SAMPLES = 1 << 14
 MODES_TWIN_REF_SAMPLES = 4096
+#: the mode='auto' phase: the synth program under ``AUTOTUNE_MIN_OPS`` ops
+#: (its op count and samples), and the environment every other phase and
+#: the command line's children run with; a skipped candidate is timed at
+#: the race batch when its bound is at most AUTO_TIMED_BOUND_S seconds
+AUTO_SYNTH_OPS = 600
+AUTO_TIMED_BOUND_S = 0.05
+AUTO_SYNTH_SAMPLES = 4096
+PINNED_ENV = {'DA4ML_RUN_MODE': 'pallas'}
 #: calls of the flagship's ``DaisExecutor.__call__`` each held to the one-launch route
 BOUNDARY_REPEATS = 20
 #: values beyond each integer type's range that the card's conversion must map
@@ -840,6 +878,7 @@ def run_dais_flagship(torch, comb, card: str, ptxas) -> dict:
         'bound_ms': bound_ms,
         'bound_by': bound_by,
         'library_ms': None,
+        'y': y,
     }
 
 
@@ -1380,7 +1419,7 @@ def run_config5(torch, ts, fused_cse, native, card: str, ptxas) -> dict:
           f"plain version (max abs err {err}), the first {MODEL_REF_SAMPLES} to the reference interpreter on this "
           f"program and on the 'cpp' one", flush=True)  # fmt: skip
     return {'k1_launches': launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked),
-            'cost': float(comb_dev.cost), 'prog': prog}  # fmt: skip
+            'cost': float(comb_dev.cost), 'prog': prog, 'ref_y': y[:MODEL_REF_SAMPLES]}  # fmt: skip
 
 
 def stages_digest(pipe) -> str:
@@ -1462,7 +1501,7 @@ def run_fusion(torch, ts, fused_cse, card: str, ptxas) -> dict:
             modes[mode] = modes.get(mode, 0) + n
         fusion_fused(torch, name, pipe, data, card, ptxas)
     return {'k1_launches': k1_launches, 'k1_modes': modes, 'k2_launches': k2_launches,
-            'k2_err': max(r['max_abs_err'] for r in checked)}  # fmt: skip
+            'k2_err': max(r['max_abs_err'] for r in checked), 'pipes': pipes}  # fmt: skip
 
 
 def run_wide_conv(torch, card: str, ptxas) -> dict:
@@ -1499,7 +1538,7 @@ def run_wide_conv(torch, card: str, ptxas) -> dict:
     print(f'[{card}] wide conv: K1 {ms:.4f} ms for {WIDE_CONV_SAMPLES} samples ({launches} launches on the main path, '
           f'{scratch_launches} scratch), plain version {plain_ms:.4f} ms; bound {bound_ms:.4f} ms; equal '
           f'to the plain version (max abs err {err}) and the reference interpreter', flush=True)  # fmt: skip
-    return {'k1_launches': launches, 'prog': prog}
+    return {'k1_launches': launches, 'prog': prog, 'y': y}
 
 
 # ---------------------------------------------------------------------------
@@ -2081,6 +2120,7 @@ class CliRun:
         root = Path(__file__).resolve().parent
         env = dict(os.environ)
         env['PYTHONPATH'] = os.pathsep.join(p for p in (str(root), env.get('PYTHONPATH', '')) if p)
+        env.update(PINNED_ENV)  # K1, even when started during the mode='auto' phase
         self.label, self.args = label, args
         self.out, self.err = Path(tmp) / f'{label}.out', Path(tmp) / f'{label}.err'
         self.t0 = time.perf_counter()
@@ -2263,7 +2303,7 @@ def cli_twin(torch, ts, fused_cse, tmp, card: str) -> dict:
 
 
 def run_cli(torch, ts, fused_cse, comb, card: str, tmp, chain: CliTwinChain) -> dict:
-    """Phase 18: the command line as a user runs it
+    """Phase 19: the command line as a user runs it
     (``python -m da4ml_tpu_torch``, each step a child process, its exit code
     checked): the flagship saved as ``.json`` converted to HLS projects in
     each flavour (``CLI_DIGESTS``) and with ``--validate-rtl`` on
@@ -3102,7 +3142,238 @@ def run_modes(torch, comb, config5_prog, twin_prog, wide_prog, card: str) -> dic
     laps.lap('twin')
     print(f'executor modes wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
     return {'k1_paths': {'modes_flagship': flag['k1_launches'], 'modes_corpus': corpus,
-                         'modes_config5': model['k1_launches'], 'modes_twin': twin['k1_launches']}}  # fmt: skip
+                         'modes_config5': model['k1_launches'], 'modes_twin': twin['k1_launches']},
+            'ms': {'flagship': flag['ms'], 'config5': model['ms']}}  # fmt: skip
+
+
+def phase_samples(seed: int, n: int, n_in: int) -> np.ndarray:
+    """The first ``n`` rows an earlier phase drew with
+    ``default_rng(seed).uniform(-8, 8, (rows, n_in))``: the generator fills
+    row by row, so they are its first ``n`` rows whatever its ``rows``."""
+    return np.random.default_rng(seed).uniform(-8, 8, (n, n_in))
+
+
+def auto_counts() -> tuple[float, float]:
+    """``run.autotune`` and ``run.mode_cache_hit`` as the metrics hold them."""
+    from da4ml_tpu_torch import telemetry
+
+    snap = telemetry.metrics_snapshot()
+    return tuple(snap.get(k, {}).get('value', 0.0) for k in ('run.autotune', 'run.mode_cache_hit'))
+
+
+def auto_race(torch, label: str, build, data, card: str, full_ms: dict | None = None, held=None) -> dict:
+    """One program's ``mode='auto'`` on the card: ``build()`` constructs its
+    executor, racing (K1's count reset just before, read just after the
+    race and the full-size call; each K1 call of the race recorded and its
+    output held to K1's plain version on the race batch, so every counted
+    launch is checked); the decision file read back; a second
+    construction answered from memory and a third, the in-process decisions
+    cleared, from the file; each skipped candidate whose bound is at most
+    ``AUTO_TIMED_BOUND_S`` timed once at the race batch, above its bound
+    and slower than the winner; ``full_ms``, phase 17's full-size times,
+    beside the bounds; the winner on ``data`` equal to the reference
+    interpreter (or to ``held``, an earlier phase's output on the same
+    ``data`` that it held to the reference interpreter) and timed, K1
+    forced beside it where it lost. Prints one line; returns the main
+    path's K1 launches and the decision."""
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime import torch_backend as tb
+
+    race_calls = []
+    launch_k1 = cuda_backend.DaisKernel.__call__
+
+    def recorded(kernel, x):
+        y = launch_k1(kernel, x)
+        race_calls.append((x, y))
+        return y
+
+    c0 = auto_counts()
+    cuda_backend.reset_counts()
+    cuda_backend.DaisKernel.__call__ = recorded
+    t0 = time.perf_counter()
+    try:
+        ex = build()
+        torch.cuda.synchronize()
+    finally:
+        cuda_backend.DaisKernel.__call__ = launch_k1
+    race_s = time.perf_counter() - t0
+    launches = cuda_backend.launches
+    # every K1 call of the race, its warm-up and timed calls, held to K1's
+    # plain version on the race batch before its launches count
+    assert race_calls, f'{label}: the race did not call K1'
+    for xr, yr in race_calls:
+        assert torch.equal(yr, ex.plain(xr)), f'{label}: a K1 call of the race differs from its plain version'
+    del race_calls
+    prog, digest = ex.prog, ex._digest()
+    blob = json.loads((Path(tb._mode_cache_dir()) / f'{digest}.cuda.json').read_text())
+    assert blob['mode'] == ex.mode and blob['platform'] == 'cuda', (label, blob)
+    assert auto_counts() == (c0[0] + 1, c0[1]), f'{label}: the construction did not race once'
+    candidates = ex._candidates()
+    measured = [m for m in candidates if f'{m}_samples_per_s' in blob]
+    skipped = {m: blob[f'{m}_skipped_bound_s'] for m in candidates if f'{m}_skipped_bound_s' in blob}
+    assert set(measured) | set(skipped) == set(candidates) and 'pallas' in measured, (label, blob)
+
+    def rebuild():
+        return tb.DaisExecutor(prog, autotune_min_ops=ex._autotune_min_ops)
+
+    assert rebuild().mode == ex.mode and auto_counts() == (c0[0] + 1, c0[1] + 1), f'{label}: not answered from memory'
+    tb._MODE_DECISIONS.clear()
+    assert rebuild().mode == ex.mode and auto_counts() == (c0[0] + 1, c0[1] + 2), f'{label}: not answered from the file'
+
+    batch = blob['batch']
+    x_race = ex._race_batch()
+    win_s = batch / blob[f'{ex.mode}_samples_per_s']
+    at_batch = {}
+    for m, bound_s in skipped.items():
+        if bound_s > AUTO_TIMED_BOUND_S:
+            continue
+        plan = ex._build_plan(m)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan(x_race)
+        torch.cuda.synchronize()
+        at_batch[m] = time.perf_counter() - t0
+        assert bound_s <= at_batch[m], f'{label}: {m} took {at_batch[m]} s at the race batch, under its bound {bound_s}'
+        assert at_batch[m] > win_s, f'{label}: the skipped {m} ({at_batch[m]} s) beats the winner ({win_s} s)'
+    del x_race
+
+    cuda_backend.reset_counts()
+    y = ex(data)
+    torch.cuda.synchronize()
+    launches += cuda_backend.launches
+    if held is None:
+        reference_equal(prog, data, y)
+    else:
+        assert np.array_equal(y, held), f'{label}: the winner differs from the output held to the reference interpreter'
+    x = ex.int_inputs(data)
+    times = {ex.mode: cuda_ms(lambda: ex.fn_int(x), reps=5)}
+    if ex.mode != 'pallas':
+        k1 = tb.DaisExecutor(prog, mode='pallas')
+        assert torch.equal(k1.fn_int(x), ex.fn_int(x)), f'{label}: K1 differs from the winner'
+        times['pallas'] = cuda_ms(lambda: k1.fn_int(x), reps=5)
+    del x
+    full = ''
+    if full_ms:
+        for m, bound_s in skipped.items():
+            if m in full_ms:
+                assert bound_s < full_ms[m] / 1e3, f'{label}: {m} at full size {full_ms[m]} ms, under its bound'
+        full = ('; phase 17 at full size: ' + ', '.join(f'{m} {full_ms[m]:.4f} ms (bound {skipped[m] * 1e3:.4f} ms)'
+                                                       for m in skipped if m in full_ms))  # fmt: skip
+    built = ', '.join(f"{m} build {blob[f'{m}_compile_s']:.4f} s, {blob[f'{m}_samples_per_s']:.1f} samples/s"
+                      for m in measured)  # fmt: skip
+    skips = ', '.join(f'{m} (bound {b:.6f} s' + (f', one call {at_batch[m]:.6f} s)' if m in at_batch else ', not timed)')
+                      for m, b in skipped.items()) or 'none'  # fmt: skip
+    print(f"[{card}] auto, {label} ({prog.n_ops} ops, {prog.n_in} inputs; race batch {batch} rows, launch floor "
+          f"{blob['launch_floor_s'] * 1e6:.3f} us): candidates {', '.join(candidates)}; {built}; skipped {skips}; "
+          f"winner {ex.mode}; race {race_s:.3f} s (host clock); a second construction from memory, a third from the "
+          f"file; at {len(data)} samples {', '.join(f'{m} {ms:.4f} ms' for m, ms in times.items())} (CUDA events), "
+          f"equal to the reference interpreter; K1 launched {launches} times{full}", flush=True)  # fmt: skip
+    return {'k1_launches': launches, 'mode': ex.mode, 'race_s': race_s, 'prog': prog,
+            'min_ops': ex._autotune_min_ops}  # fmt: skip
+
+
+def auto_child(path: str) -> int:
+    """The child of the ``mode='auto'`` phase: each program of ``path`` (an
+    ``.npz`` of DAIS binaries, ``min_ops`` the ``autotune_min_ops`` of each)
+    constructed with ``mode='auto'``, the race replaced by a failure, so
+    each answer must come from the decision files. Prints the modes as one
+    JSON line."""
+    from da4ml_tpu_torch.ir.dais_binary import decode
+    from da4ml_tpu_torch.runtime import torch_backend as tb
+
+    def no_race(self, digest, platform):
+        raise AssertionError(f'the child raced {self.prog.n_ops} ops: no decision for {digest}@{platform}')
+
+    tb.DaisExecutor._autotune = no_race
+    blob = np.load(path)
+    min_ops = json.loads(str(blob['min_ops']))
+    modes = {name: tb.DaisExecutor(decode(blob[name]), autotune_min_ops=min_ops[name]).mode for name in min_ops}
+    print(json.dumps(modes))
+    return 0
+
+
+def run_auto(torch, comb, config5_prog, block, wide_prog, card: str, full_ms: dict, held: dict) -> dict:
+    """Phase 18, ``mode='auto'`` on the card (``DA4ML_RUN_MODE`` unset for
+    the phase): ``auto_race`` on the flagship (``FLAGSHIP_SAMPLES``), config 5
+    (``MODES_CONFIG5_SAMPLES``), the transformer block's fused program
+    (``fused_executor_for_binaries``, ``FUSION_SAMPLES``) and the wide conv
+    front end (``WIDE_CONV_SAMPLES``), the flagship, config 5 and the wide
+    conv on the samples of phases 5, 9 and 11, whose outputs (``held``) those
+    phases held to the reference interpreter; a synth program under
+    ``AUTOTUNE_MIN_OPS`` ops taking K1 with no race; then a child process
+    answered from the same decision files. Prints the phase's wall time by
+    step; returns the K1 launches by path."""
+    from da4ml_tpu_torch import telemetry
+    from da4ml_tpu_torch.ir.dais_binary import decode, encode
+    from da4ml_tpu_torch.ir.synth import random_inputs, random_program
+    from da4ml_tpu_torch.runtime import cuda_backend
+    from da4ml_tpu_torch.runtime import torch_backend as tb
+
+    pinned = {k: os.environ.pop(k) for k in PINNED_ENV if k in os.environ}
+    metrics_were_on = telemetry.metrics_on()
+    telemetry.enable(metrics=True)
+    laps, races, paths = Laps(), {}, {}
+    try:
+        flag = decode(comb.to_binary())
+        races['flagship'] = auto_race(torch, 'flagship', lambda: tb.DaisExecutor(flag),
+                                      phase_samples(20260729, FLAGSHIP_SAMPLES, flag.n_in), card, full_ms['flagship'],
+                                      held['flagship'])  # fmt: skip
+        laps.lap('flagship')
+        races['config5'] = auto_race(torch, 'config 5', lambda: tb.DaisExecutor(config5_prog),
+                                     phase_samples(20261018, MODES_CONFIG5_SAMPLES, config5_prog.n_in), card,
+                                     full_ms['config5'], held['config5'][:MODES_CONFIG5_SAMPLES])  # fmt: skip
+        laps.lap('config 5')
+        binaries = [st.to_binary() for st in block.stages]
+        races['fused_block'] = auto_race(torch, 'transformer block, fused', lambda: tb.fused_executor_for_binaries(binaries),
+                                         np.random.default_rng(20261022).uniform(-4, 4, (FUSION_SAMPLES, block.shape[0])),
+                                         card)  # fmt: skip
+        laps.lap('fused block')
+        races['wide_conv'] = auto_race(torch, 'wide conv', lambda: tb.DaisExecutor(wide_prog),
+                                       phase_samples(20261020, WIDE_CONV_SAMPLES, wide_prog.n_in), card,
+                                       held=held['wide_conv'])  # fmt: skip
+        laps.lap('wide conv')
+        assert races['wide_conv']['race_s'] < 60, f"the wide conv's race took {races['wide_conv']['race_s']} s"
+
+        synth = random_program(np.random.default_rng(20261023), n_ops=AUTO_SYNTH_OPS, n_in=8, n_out=6)
+        assert synth.n_ops <= tb.DaisExecutor.AUTOTUNE_MIN_OPS
+        c0, n_files = auto_counts(), len(list(Path(tb._mode_cache_dir()).glob('*.json')))
+        data = random_inputs(np.random.default_rng(20261024), synth, AUTO_SYNTH_SAMPLES)
+        cuda_backend.reset_counts()
+        ex = tb.DaisExecutor(synth)
+        y = ex(data)
+        torch.cuda.synchronize()
+        paths['auto_synth'] = cuda_backend.launches
+        assert ex.mode == 'pallas' and paths['auto_synth'] > 0, (ex.mode, paths['auto_synth'])
+        assert auto_counts() == c0 and len(list(Path(tb._mode_cache_dir()).glob('*.json'))) == n_files, 'the synth raced'
+        reference_equal(synth, data, y)
+        print(f'[{card}] auto, synth ({synth.n_ops} ops, at most AUTOTUNE_MIN_OPS = {tb.DaisExecutor.AUTOTUNE_MIN_OPS}): '
+              f'the static answer {ex.mode} with no race, K1 launched {paths["auto_synth"]} times, {AUTO_SYNTH_SAMPLES} '
+              f'samples equal to the reference interpreter', flush=True)  # fmt: skip
+        laps.lap('synth')
+
+        with tempfile.TemporaryDirectory(prefix='chip_smoke_auto_') as d:
+            f = Path(d) / 'progs.npz'
+            np.savez(f, min_ops=json.dumps({k: r['min_ops'] for k, r in races.items()}),
+                     **{k: encode(r['prog']) for k, r in races.items()})  # fmt: skip
+            root = Path(__file__).resolve().parent
+            env = {**os.environ, 'PYTHONPATH': os.pathsep.join(p for p in (str(root), os.environ.get('PYTHONPATH', '')) if p)}
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, str(root / 'chip_smoke.py'), '--auto-child', str(f)], env=env,
+                                 capture_output=True, text=True, timeout=600)  # fmt: skip
+            child_s = time.perf_counter() - t0
+        assert out.returncode == 0, f'the auto child failed:\n{out.stderr[-4000:]}'
+        got = json.loads(out.stdout.strip().splitlines()[-1])
+        assert got == {k: r['mode'] for k, r in races.items()}, (got, {k: r['mode'] for k, r in races.items()})
+        print(f'[{card}] auto, child process: {got}, each answered from the decision files with no race, in '
+              f'{child_s:.3f} s (host clock)', flush=True)  # fmt: skip
+        laps.lap('child')
+    finally:
+        os.environ.update(pinned)
+        if not metrics_were_on:
+            telemetry.disable()
+    print(f"mode='auto' wall time by step (host clock, {cpu_model()}): {laps.line()}", flush=True)
+    paths.update({f'auto_{k}': r['k1_launches'] for k, r in races.items()})
+    return {'k1_paths': paths}
 
 
 def main() -> int:
@@ -3122,6 +3393,11 @@ def main() -> int:
     from da4ml_tpu_torch.runtime.reference import run_program
     from da4ml_tpu_torch.runtime.torch_backend import DaisExecutor
 
+    # mode='auto' decisions in a fresh directory, inherited by every child;
+    # K1 for 'auto' in every phase but the mode='auto' phase
+    decisions = tempfile.TemporaryDirectory(prefix='chip_smoke_decisions_')
+    os.environ['DA4ML_TORCH_CACHE'] = decisions.name
+    os.environ.update(PINNED_ENV)
     t_start = time.perf_counter()
     phases = Laps()
     card = card_line()
@@ -3170,7 +3446,7 @@ def main() -> int:
     assert native.has_solver() and native.has_emit()
     phases.lap('builds')
 
-    # phase 18's twin steps start now, beside the phases before it: the
+    # phase 19's twin steps start now, beside the phases before it: the
     # command line's g++ build of the twin's emulator is the run's longest step
     cli_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_cli_')
     chain = CliTwinChain(torch, Path(cli_tmp.name))
@@ -3252,6 +3528,7 @@ def main() -> int:
 
     # phase 5: K1's main path at 2^20 samples, on the device-solved program
     dais = run_dais_flagship(torch, comb_dev, card, k1_regs)
+    flagship_y = dais.pop('y')  # held to the reference interpreter; phase 18 reads it
     phases.lap('K1 flagship')
 
     # phase 6: K2 corpus — the flagship's rungs (timed, phases of each) and
@@ -3374,13 +3651,21 @@ def main() -> int:
     modes = run_modes(torch, comb_dev, model['prog'], firmware['twin']['prog'], wide_conv['prog'], card)
     phases.lap('executor modes')
 
-    # phase 18: the command line — convert to HLS projects (K2, K1 against
+    # phase 18: mode='auto' — the race on the flagship, config 5, the fused
+    # transformer block and the conv front end, the decision cache in memory,
+    # in its files and in a child; the static answer on a small program
+    auto = run_auto(torch, comb_dev, model['prog'], fusion['pipes']['transformer_block'], wide_conv['prog'], card,
+                    modes['ms'], {'flagship': flagship_y, 'config5': model['ref_y'], 'wide_conv': wide_conv['y']})  # fmt: skip
+    phases.lap("mode='auto'")
+
+    # phase 19: the command line — convert to HLS projects (K2, K1 against
     # the g++ emulator), verify (conformance in every mode), lint-opcodes
     cli = run_cli(torch, ts, fused_cse, comb_dev, card, Path(cli_tmp.name), chain)
     cli_tmp.cleanup()
+    decisions.cleanup()
     phases.lap('cli')
 
-    # phase 19: the port imported nothing of JAX
+    # phase 20: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
     k1_paths = {'flagship': dais['launches'], 'config5': model['k1_launches'], 'fusion': fusion['k1_launches'],
@@ -3389,7 +3674,7 @@ def main() -> int:
                 **{f'pipeline_model_{mode}': n for mode, n in pipeline_launches.items()},
                 'firmware_flagship': firmware['flagship']['k1_launches'], 'firmware_twin': firmware['twin']['k1_launches'],
                 'cli_flagship': cli['flagship']['k1_launches'], 'cli_twin': cli['twin']['k1_launches'],
-                **quality['k1_paths'], **tel['k1_paths'], **modes['k1_paths']}  # fmt: skip
+                **quality['k1_paths'], **tel['k1_paths'], **modes['k1_paths'], **auto['k1_paths']}  # fmt: skip
     k2_paths = {'flagship': k2_launches, 'config5': model['k2_launches'], 'fusion': fusion['k2_launches'],
                 'firmware_twin': firmware['twin']['k2_launches'], 'cli_twin': cli['twin']['k2_launches'],
                 **quality['k2_paths'], **tel['k2_paths']}  # fmt: skip
@@ -3424,4 +3709,6 @@ def main() -> int:
 if __name__ == '__main__':
     if sys.argv[1:2] == ['--profile-child']:
         sys.exit(profile_child(Path(sys.argv[2])))
+    if sys.argv[1:2] == ['--auto-child']:
+        sys.exit(auto_child(sys.argv[2]))
     sys.exit(main())

@@ -7,10 +7,12 @@ two sources merged in priority order:
 1. in-process registrations via :func:`register_plugin`;
 2. installed-package entry points in the group ``da4ml_tpu_torch.plugins``.
 
-The port's registry maps ``torch`` to its own :class:`TorchTracer`. It reads
-only its own entry-point group, so an installed reference package never
-supplies a tracer here. The reference's Keras plugin and its example plugin
-are not ported.
+The port's registry maps ``torch`` to its own :class:`TorchTracer`, and
+pre-registers its example plugin (``converter/example.py``) under
+``da4ml_tpu_torch``, so the stack is exercisable without any third-party
+framework. It reads only its own entry-point group, so an installed
+reference package never supplies a tracer here. The reference's Keras
+plugin is not ported.
 
 Counterpart of ``da4ml_tpu/converter/__init__.py``.
 """
@@ -40,6 +42,7 @@ ENTRY_POINT_GROUP = 'da4ml_tpu_torch.plugins'
 
 # name -> plugin class or 'module:attr' lazy spec
 _REGISTRY: dict[str, Any] = {
+    'da4ml_tpu_torch': 'da4ml_tpu_torch.converter.example:ExampleTracer',
     'torch': 'da4ml_tpu_torch.converter.torch_plugin:TorchTracer',
 }
 

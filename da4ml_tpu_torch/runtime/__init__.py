@@ -3,7 +3,9 @@
 - ``torch`` (the default): :class:`~.torch_backend.DaisExecutor` — the
   hand-written CUDA kernel on a CUDA device (``cuda_backend``), its plain
   torch version on ``device='cpu'``; ``mode`` forces one of its modes
-  (``'unroll'``, ``'scan'``, ``'level'``, ``'pallas'``);
+  (``'unroll'``, ``'scan'``, ``'level'``, ``'pallas'``), and ``'auto'`` (the
+  default) takes the static answer or the measured race, its decisions in
+  ``mode_decisions()``;
 - ``numpy``: the vectorized int64 host interpreter (``numpy_backend``);
 - ``cpp``: the native C++ host interpreter, OpenMP over sample chunks
   (``da4ml_tpu_torch.native``; ``n_threads <= 0`` leaves the count to OpenMP).
@@ -81,7 +83,7 @@ def program_from_binary(binary: NDArray[np.int32], device=None):
 
 
 #: names served from ``torch_backend`` on first use
-_TORCH_BACKEND = ('PipelineExecutor', 'fused_executor_for_binaries', 'run_pipeline')
+_TORCH_BACKEND = ('PipelineExecutor', 'fused_executor_for_binaries', 'run_pipeline', 'mode_decisions')
 
 
 def __getattr__(name: str):

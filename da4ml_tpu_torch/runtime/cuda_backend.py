@@ -211,14 +211,33 @@ def _nvcc() -> str:
     raise RuntimeError('nvcc not found (set CUDA_HOME): the CUDA kernels are built from source at first use')
 
 
+def source_digest(source: Path, flags: tuple[str, ...]) -> str:
+    """The content address of a kernel library: source and flags, hashed."""
+    return hashlib.sha256(source.read_bytes() + ' '.join(flags).encode()).hexdigest()[:16]
+
+
+def build_digest() -> str:
+    """The digest ``build()`` names K1's library by, read without building
+    it (so a changed K1 is raced again by ``mode='auto'``)."""
+    return source_digest(SOURCE, NVCC_FLAGS)
+
+
+def autotune_candidate(device: torch.device) -> bool:
+    """Whether ``mode='auto'``'s race times K1 (``mode='pallas'``): on a
+    CUDA device only. On the CPU the wrapper runs its plain version, which is
+    the race's ``level`` candidate already; the reference's
+    ``DA4ML_PALLAS_AUTOTUNE`` asks for Pallas's interpret mode, a code path
+    the port does not have."""
+    return device.type == 'cuda'
+
+
 def compile_source(source: Path, flags: tuple[str, ...]) -> tuple[Path, str]:
     """Compile one kernel source with nvcc into a shared library under
     ``BUILD_DIR``, content-addressed by source and flags: ``(path, nvcc's
     diagnostics)``. The diagnostics are kept beside the library, so a build
     that already exists returns those of the run that made it. Raises with
     nvcc's output on failure."""
-    digest = hashlib.sha256(source.read_bytes() + ' '.join(flags).encode()).hexdigest()[:16]
-    out = BUILD_DIR / f'lib{source.stem}_{digest}.so'
+    out = BUILD_DIR / f'lib{source.stem}_{source_digest(source, flags)}.so'
     log_path = out.with_suffix('.log')
     if out.exists():
         return out, log_path.read_text() if log_path.exists() else ''

@@ -24,8 +24,16 @@ The executor runs one of four modes, the reference's ``MODES``:
 - ``'scan'``: :class:`ScanPlan`, ``_build_scan`` as torch ops, one
   table-driven step per op over device-resident metadata.
 
-``mode='auto'`` (the default) is ``'pallas'`` on a CUDA device and
-``'level'`` on the CPU; ``DA4ML_RUN_MODE`` replaces ``'auto'`` only. Force a
+``mode='auto'`` (the default) is the reference's: a static answer for a
+small program, else a measured race among the modes whose winner is cached
+per (program digest, platform) in memory and in ``run-modes`` under
+``DA4ML_TORCH_CACHE`` (``~/.cache/da4ml_tpu_torch``; ``0`` keeps it in
+memory). One difference is deliberate: where the reference's static answer
+is ``'unroll'`` (one compiled program, nothing to measure), the port's is
+``'unroll'`` on the CPU and ``'pallas'`` on a CUDA device, where K1 is the
+one-launch mode and unroll issues a launch per step. K1 is one of the race's
+candidates on the card, and a K1 that fails raises instead of losing.
+``DA4ML_RUN_MODE`` replaces ``'auto'`` only. Force a
 mode with ``DaisExecutor(prog, mode='scan', device='cpu')`` (or on the card
 with ``device='cuda'``), ``run_comb(comb, data, mode=...)`` or
 ``run_binary(binary, data, mode=...)``; ``force_i64=True`` runs a narrow
@@ -51,9 +59,8 @@ Entry points run on the card unless the caller passes ``device='cpu'``;
 ``device=None`` with no CUDA device raises instead of dropping to the CPU.
 
 Counterpart of ``DaisExecutor``, ``PipelineExecutor`` and ``run_pipeline`` in
-``da4ml_tpu/runtime/jax_backend.py``, without the measured ``mode='auto'``
-(its static heuristic, autotune race and decision cache), the packed
-transfers, sharding and model-shard paths.
+``da4ml_tpu/runtime/jax_backend.py``, without the packed transfers
+(``_pack_plan``, ``_wrap_packed``), sharding and model-shard paths.
 
 Telemetry, as the reference records it: each call is one ``run.call`` span
 (``mode`` the executor's resolved mode, and the pipelines'
@@ -65,6 +72,8 @@ download, timed where the call already waits for its output.
 
 from __future__ import annotations
 
+import hashlib
+import json
 import os
 import time
 from collections import OrderedDict
@@ -999,6 +1008,112 @@ def _traced_call(holder, first: 'DaisExecutor', last: 'DaisExecutor', fn, data, 
     return res
 
 
+# ---------------------------------------------------------------------------
+# mode='auto': the decision cache, in memory per process and persisted per
+# (program digest, platform) in the port's own cache directory
+# ---------------------------------------------------------------------------
+
+_MODE_DECISIONS: dict[tuple[str, str], str] = {}
+
+
+def mode_decisions() -> dict[str, str]:
+    """In-process ``mode='auto'`` decisions (``digest@platform`` -> mode), as
+    ``/statusz`` shows them. A decision is keyed by (program digest,
+    platform): one measured on the CPU never answers for the card."""
+    return {f'{d}@{p}': mode for (d, p), mode in _MODE_DECISIONS.items()}
+
+
+def _mode_cache_dir() -> str | None:
+    """The directory of persisted decisions: ``run-modes`` under
+    ``DA4ML_TORCH_CACHE``, else under ``~/.cache/da4ml_tpu_torch``;
+    ``DA4ML_TORCH_CACHE=0`` (``none``, ``off``) keeps them in memory only."""
+    base = os.environ.get('DA4ML_TORCH_CACHE', '').strip()
+    if base.lower() in ('0', 'none', 'off'):
+        return None
+    path = os.path.join(base or os.path.expanduser('~/.cache/da4ml_tpu_torch'), 'run-modes')
+    try:
+        os.makedirs(path, exist_ok=True)
+    except OSError:
+        return None
+    return path
+
+
+def _platform(device: torch.device) -> str:
+    """The platform half of the decision key: ``'cuda'`` or ``'cpu'``."""
+    return device.type
+
+
+def _decision_path(d: str, digest: str, platform: str) -> str:
+    # the platform is a key of its own, not folded into the digest: a decision
+    # measured on the CPU must never answer for the same program on the card
+    return os.path.join(d, f'{digest}.{platform}.json')
+
+
+def _load_mode_decision(digest: str, platform: str) -> str | None:
+    """The decision for (digest, platform), from memory or its file; a file
+    that is unreadable, corrupt or of another platform is ignored."""
+    mode = _MODE_DECISIONS.get((digest, platform))
+    if mode:
+        return mode
+    d = _mode_cache_dir()
+    if not d:
+        return None
+    try:
+        with open(_decision_path(d, digest, platform)) as fh:
+            blob = json.load(fh)
+    except (OSError, ValueError):
+        return None
+    if not isinstance(blob, dict):
+        return None
+    mode = blob.get('mode')
+    if mode in MODES and blob.get('platform', platform) == platform:
+        _MODE_DECISIONS[(digest, platform)] = mode
+        return mode
+    return None
+
+
+def _store_mode_decision(digest: str, platform: str, mode: str, info: dict) -> None:
+    """Keep a decision in memory and write it to its file atomically (a
+    temporary file named with the pid, then ``os.replace``)."""
+    _MODE_DECISIONS[(digest, platform)] = mode
+    d = _mode_cache_dir()
+    if not d:
+        return
+    path = _decision_path(d, digest, platform)
+    tmp = f'{path}.tmp{os.getpid()}'
+    try:
+        with open(tmp, 'w') as fh:
+            json.dump({'mode': mode, 'platform': platform, **info}, fh)
+        os.replace(tmp, path)
+    except OSError:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+
+
+def _launch_floor_s(device: torch.device, reps: int = 256) -> float:
+    """The smallest host time of one launch on ``device``: the best of five
+    runs of ``reps`` in-place adds to a one-element tensor, each run ended by
+    a synchronize. No plan's op issues faster, so ``launches * floor`` is a
+    lower bound on a plan's call."""
+    t = torch.zeros(1, dtype=torch.int32, device=device)
+    sync = _synchronizer(device)
+    best = float('inf')
+    for _ in range(5):
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            t.add_(1)
+        sync()
+        best = min(best, (time.perf_counter() - t0) / reps)
+    return best
+
+
+def _synchronizer(device: torch.device):
+    if device.type == 'cuda':
+        return lambda: torch.cuda.synchronize(device)
+    return lambda: None
+
+
 class DaisExecutor:
     """A DAIS program as a batched integer kernel on one device.
 
@@ -1018,10 +1133,20 @@ class DaisExecutor:
     - ``'unroll'``: :class:`UnrollPlan`, one step per op with its constants
       folded; refuses programs over ``UNROLL_LIMIT`` ops;
     - ``'scan'``: :class:`ScanPlan`, one table-driven step per op;
-    - ``'auto'``: ``'pallas'`` on a CUDA device, ``'level'`` on the CPU. The
-      reference's static heuristic and measured race among the modes are not
-      ported; ``DA4ML_RUN_MODE`` (one of ``MODES``) replaces ``'auto'``, never
-      an explicit mode.
+    - ``'auto'``: the reference's rule, measured (``_select_mode``). A
+      program of at most ``autotune_min_ops`` ops (``AUTOTUNE_MIN_OPS``,
+      ``DA4ML_RUN_AUTOTUNE_MIN_OPS``) takes the static answer, as does any
+      program under ``DA4ML_RUN_AUTOTUNE=0``; a larger one is raced among
+      the modes (``_autotune``) and the winner kept per (program digest,
+      platform). The static answer differs by device, on purpose: on the
+      CPU it is the reference's own (``'unroll'`` up to the limits, and
+      ``'level'`` above ``UNROLL_LIMIT`` with the race off); on a CUDA
+      device it is ``'pallas'``, at every size. The reference's unroll
+      stands for one compiled program that needs no measurement; on the
+      card the port's one-launch mode is K1, and its unroll is a launch per
+      step (33.9–56.7 ms against K1's 1.6 ms on the flagship at 2^20
+      samples, NVIDIA H100 80GB HBM3). ``DA4ML_RUN_MODE`` (one of
+      ``MODES``) replaces ``'auto'`` first, never an explicit mode.
 
     ``self.mode`` is the resolved mode. The call boundary, the chunking and
     the telemetry are the same in every mode.
@@ -1030,7 +1155,18 @@ class DaisExecutor:
     #: ``runtime.UNROLL_LIMIT``, on the class as on the reference's executor
     UNROLL_LIMIT = UNROLL_LIMIT
 
-    def __init__(self, prog: DaisProgram, force_i64: bool | None = None, mode: str = 'auto', device=None):
+    #: at or below this op count ``mode='auto'`` takes the static answer
+    #: without a race (the reference's value)
+    AUTOTUNE_MIN_OPS = 1024
+
+    #: rows of the race's synthetic batch, at most (``DA4ML_RUN_AUTOTUNE_BATCH``)
+    AUTOTUNE_BATCH = 4096
+
+    def __init__(self, prog: DaisProgram, force_i64: bool | None = None, mode: str = 'auto', device=None,
+                 autotune_min_ops: int | None = None):  # fmt: skip
+        """``autotune_min_ops`` replaces ``AUTOTUNE_MIN_OPS`` for this
+        executor: 0 races every program, as ``fused_executor_for_binaries``
+        does (a fused program is deep even when it is small)."""
         prog.validate()
         self.prog = prog
         if mode not in ('auto', *MODES):
@@ -1038,32 +1174,38 @@ class DaisExecutor:
         if force_i64 is not None and not isinstance(force_i64, (bool, np.bool_)):
             raise TypeError(f'force_i64 must be None, True or False, got {force_i64!r} (pass the device as device=)')
         self.device = resolve_device(device)
+        self._autotune_min_ops = autotune_min_ops
         # +2 headroom: shift_add aligns operands before the narrowing shift
         wide = prog.max_width + 2 > 31
         self.use_i64 = wide if force_i64 is None else bool(force_i64)
         self.dtype = torch.int64 if self.use_i64 else torch.int32
         self.np_dtype = np.int64 if self.use_i64 else np.int32
+        self.meta = op_meta(prog, self.use_i64)
         env_mode = _env_mode().strip().lower()
         if mode == 'auto' and env_mode in MODES:
             mode = env_mode
+        plan = None
         if mode == 'auto':
-            mode = 'pallas' if self.device.type == 'cuda' else 'level'
+            mode, plan = self._select_mode()
         if mode == 'unroll' and prog.n_ops > self.UNROLL_LIMIT:
             raise ValueError(
                 f"mode='unroll' refuses a {prog.n_ops}-op program (compile time grows with program "
                 f"size; UNROLL_LIMIT={self.UNROLL_LIMIT}). Use mode='level'."
             )
         self.mode = mode
-        self.meta = op_meta(prog, self.use_i64)
         self._in_scale = self._inp_scale()
         self._out_sf = self._out_scale()
         self._scales: dict[torch.device, tuple[torch.Tensor, torch.Tensor]] = {}
-        #: the mode's integer function (K1's wrapper packs its records at its
-        #: first launch, so a CPU executor never builds them)
-        self.plan = {'unroll': UnrollPlan, 'scan': ScanPlan, 'level': lambda ex: ex.plain,
-                     'pallas': lambda ex: ex.kernel}[mode](self)  # fmt: skip
+        #: the mode's integer function, the race's winner as it was built (K1's
+        #: wrapper packs its records at its first launch, so a CPU executor
+        #: never builds them)
+        self.plan = plan if plan is not None else self._build_plan(mode)
         self._compile_recorded = False
         telemetry.counter(f'run.mode.{self.mode}').inc()
+
+    def _build_plan(self, mode: str):
+        return {'unroll': UnrollPlan, 'scan': ScanPlan, 'level': lambda ex: ex.plain,
+                'pallas': lambda ex: ex.kernel}[mode](self)  # fmt: skip
 
     @cached_property
     def schedule(self) -> LevelSchedule:
@@ -1081,6 +1223,146 @@ class DaisExecutor:
         from .cuda_backend import DaisKernel
 
         return DaisKernel(self)
+
+    # -- mode='auto' ---------------------------------------------------------
+
+    def _digest(self) -> str:
+        """The program and environment digest keying the decision cache: the
+        reference's twelve program arrays and its tables, hashed as it hashes
+        them, then ``n_in``, ``n_out``, ``use_i64``, torch's version, the
+        card's name on a CUDA device and K1's build digest (a changed K1 is
+        raced again). The platform is the key's other half, not hashed."""
+        from .cuda_backend import build_digest
+
+        prog = self.prog
+        h = hashlib.sha1()
+        for a in (
+            prog.inp_shifts, prog.out_idxs, prog.out_shifts, prog.out_negs, prog.opcode, prog.id0,
+            prog.id1, prog.data_lo, prog.data_hi, prog.signed, prog.integers, prog.fractionals,
+        ):  # fmt: skip
+            h.update(np.ascontiguousarray(a, dtype=np.int64).tobytes())
+        for t in prog.tables:
+            h.update(np.ascontiguousarray(t, dtype=np.int64).tobytes())
+        card = torch.cuda.get_device_name(self.device) if self.device.type == 'cuda' else ''
+        h.update(f'|{prog.n_in}|{prog.n_out}|{self.use_i64}|{torch.__version__}|{card}|{build_digest()}'.encode())
+        return h.hexdigest()
+
+    def _select_mode(self) -> tuple[str, object]:
+        """Resolve ``mode='auto'``: the static answer for a program of at
+        most ``autotune_min_ops`` ops or with ``DA4ML_RUN_AUTOTUNE=0``, else
+        the cached decision for (digest, platform), else the race. Returns
+        ``(mode, plan)``: the race hands back its winner's built plan, the
+        other answers None."""
+        n_ops = self.prog.n_ops
+        min_ops = self._autotune_min_ops
+        if min_ops is None:
+            try:
+                min_ops = int(os.environ.get('DA4ML_RUN_AUTOTUNE_MIN_OPS', '') or self.AUTOTUNE_MIN_OPS)
+            except ValueError:
+                min_ops = self.AUTOTUNE_MIN_OPS
+        # the reference's one compiled program: its unroll; the card's is K1
+        static = 'pallas' if self.device.type == 'cuda' else 'unroll'
+        if n_ops <= min(min_ops, self.UNROLL_LIMIT):
+            return static, None
+        if os.environ.get('DA4ML_RUN_AUTOTUNE', '1').strip().lower() in ('0', 'off', 'false'):
+            if static == 'unroll' and n_ops > self.UNROLL_LIMIT:
+                return 'level', None
+            return static, None
+        digest, platform = self._digest(), _platform(self.device)
+        cached = _load_mode_decision(digest, platform)
+        if cached is not None:
+            telemetry.counter('run.mode_cache_hit').inc()
+            return cached, None
+        return self._autotune(digest, platform)
+
+    def _candidates(self) -> list[str]:
+        """The race's modes in the order they run, cheapest first: K1 where
+        ``cuda_backend.autotune_candidate`` says so, then the reference's
+        rule (``level``, ``unroll``, ``scan`` up to ``UNROLL_LIMIT``; above
+        it ``level`` and ``scan``, or ``scan`` alone on a chain-shaped
+        program of fewer than 4 ops a level)."""
+        from .cuda_backend import autotune_candidate
+
+        prog = self.prog
+        if prog.n_ops <= self.UNROLL_LIMIT:
+            modes = ['level', 'unroll', 'scan']
+        else:
+            depth = self.schedule.depth
+            modes = ['scan'] if depth and prog.n_ops / depth < 4 else ['level', 'scan']
+        return (['pallas'] if autotune_candidate(self.device) else []) + modes
+
+    def _min_launches(self, mode: str) -> int:
+        """A lower bound on the launches one call of ``mode``'s plan issues:
+        K1 one; ``level`` one a (level, family) group; ``unroll`` one an op;
+        ``scan`` its row write an op and, but for a constant, one more."""
+        n_ops = self.prog.n_ops
+        if mode == 'pallas':
+            return 1
+        if mode == 'level':
+            return max(len(level_groups(self.schedule, self.meta['branch'].astype(np.int64))), 1)
+        if mode == 'unroll':
+            return n_ops
+        return 2 * n_ops - int(np.count_nonzero(self.prog.opcode == 5))
+
+    def _race_batch(self) -> torch.Tensor:
+        """The reference's synthetic race batch as a tensor on the device: at
+        most ``DA4ML_RUN_AUTOTUNE_BATCH`` (``AUTOTUNE_BATCH``) rows, and no
+        more than one ``CHUNK_BYTES`` chunk of the call boundary's float64
+        rows holds, so the race allocates no more than a call would."""
+        prog = self.prog
+        try:
+            rows = int(os.environ.get('DA4ML_RUN_AUTOTUNE_BATCH', '') or self.AUTOTUNE_BATCH)
+        except ValueError:
+            rows = self.AUTOTUNE_BATCH
+        rows = max(1, min(rows, CHUNK_BYTES // (8 * max(prog.n_in, 1))))
+        x = torch.arange(rows * prog.n_in, dtype=torch.int64, device=self.device).reshape(rows, prog.n_in)
+        return ((x * 2654435761) % 255 - 127).to(self.dtype)
+
+    def _autotune(self, digest: str, platform: str) -> tuple[str, object]:
+        """Race the candidate modes on the synthetic batch: each is built,
+        run once warm, then timed best of two (synchronized on the card);
+        ``compile_s`` is the build and the first call. A candidate whose
+        lower bound (``_min_launches`` times ``_launch_floor_s``) already
+        exceeds the best time is skipped, recorded as
+        ``<mode>_skipped_bound_s``: the bound is a lower bound, so a skip
+        never changes the winner. A candidate that fails raises: K1 never
+        loses a race by failing. The decision persists under (digest,
+        platform); returns ``(winner, its plan)``."""
+        candidates = self._candidates()
+        x = self._race_batch()
+        sync = _synchronizer(self.device)
+        floor_s = _launch_floor_s(self.device)
+        info: dict[str, float] = {'batch': x.shape[0], 'launch_floor_s': floor_s}
+        best = None
+        with telemetry.span('run.autotune', n_ops=self.prog.n_ops, candidates=','.join(candidates)):
+            for m in candidates:
+                bound_s = self._min_launches(m) * floor_s
+                if best is not None and bound_s > best[0]:
+                    info[f'{m}_skipped_bound_s'] = bound_s
+                    continue
+                t0 = time.perf_counter()
+                plan = self._build_plan(m)
+                plan(x)
+                sync()
+                compile_s = time.perf_counter() - t0
+                run_s = float('inf')  # best of two: one noisy sample can invert the ranking
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    plan(x)
+                    sync()
+                    run_s = max(min(run_s, time.perf_counter() - t0), 1e-9)
+                telemetry.histogram('run.compile_s').observe(compile_s)
+                info[f'{m}_compile_s'] = round(compile_s, 6)
+                info[f'{m}_samples_per_s'] = round(x.shape[0] / run_s, 1)
+                if best is None or run_s < best[0]:
+                    best = (run_s, m, plan)
+        _, mode, plan = best
+        if mode != 'pallas':
+            # a losing K1 leaves with its packed records and launch tensors
+            self.__dict__.pop('kernel', None)
+        telemetry.counter('run.autotune').inc()
+        _store_mode_decision(digest, platform, mode, info)
+        return mode, plan
 
     def fn_int(self, x: torch.Tensor) -> torch.Tensor:
         """(batch, n_in) integer tensor -> (batch, n_out), on x's device,
@@ -1293,7 +1575,9 @@ def fused_executor_for_binaries(binaries: list[NDArray[np.int32]], mode: str = '
     def build():
         from ..ir.fuse import fuse_binaries
 
-        ex = DaisExecutor(decode(fuse_binaries(binaries)), mode=mode, device=dev)
+        # autotune_min_ops=0: always race, as the reference does; a fused
+        # program is deep even when its op count is small
+        ex = DaisExecutor(decode(fuse_binaries(binaries)), mode=mode, device=dev, autotune_min_ops=0)
         telemetry.counter('run.mode.fused_ir').inc()
         return ex
 

@@ -58,6 +58,8 @@ METRICS: dict[str, str] = {
     'sched.hbm_bytes': 'estimated device-resident bytes per CMVM search rung chunk',
     # -- runtime ------------------------------------------------------------
     'run.mode': 'DAIS executors constructed per resolved execution mode',
+    'run.mode_cache_hit': 'executor constructions answered by the mode cache',
+    'run.autotune': 'autotune decisions recorded',
     'run.samples': 'DAIS inference samples served',
     'run.samples_per_s': 'recent DAIS inference throughput',
     'run.batch_s': 'wall clock per inference batch',

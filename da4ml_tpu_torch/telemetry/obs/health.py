@@ -126,6 +126,17 @@ def _device_inventory() -> dict | None:
         return None
 
 
+def _run_mode_decisions() -> dict:
+    """The executor's ``mode='auto'`` decisions, if the runtime is loaded."""
+    mod = sys.modules.get('da4ml_tpu_torch.runtime.torch_backend')
+    if mod is None:
+        return {}
+    try:
+        return mod.mode_decisions()
+    except Exception:
+        return {}
+
+
 def status_snapshot() -> dict:
     """The ``/statusz`` document: everything a person debugging a live
     process wants on one page."""
@@ -144,7 +155,7 @@ def status_snapshot() -> dict:
         },
         'health': health_snapshot(snap),
         'active_spans': core.active_spans(),
-        'run_modes': {},
+        'run_modes': _run_mode_decisions(),
         'scheduler': sched,
         'runtime': run,
         'serve': None,

@@ -129,9 +129,10 @@ def test_depthwise_conv_project_and_netlist(tmp_path, flavor, cutoff):
 
 
 @pytest.mark.parametrize('flavor', FLAVORS)
-def test_flagship_project_at_latency_5(tmp_path, flavor):
+def test_flagship_project_at_latency_5(tmp_path, flavor, monkeypatch):
     """The README's quick start: the flagship program cut at latency 5. Both
     projects are the ones ``chip_smoke.PROJECT_DIGESTS`` pins."""
+    monkeypatch.setenv('DA4ML_RUN_MODE', 'level')  # the subject is not the mode: no race
     import __graft_entry__
     from da4ml_tpu_torch.entry import flagship_comb
     from test_torch_pipeline import _chip_smoke

@@ -70,7 +70,8 @@ def _weights(seed, shape, lo=-4, hi=4):
 
 @pytest.mark.parametrize('padding', ['valid', 'same'])
 @pytest.mark.parametrize('strides', [(1, 1), (2, 2)])
-def test_conv2d(padding, strides):
+def test_conv2d(padding, strides, monkeypatch):
+    monkeypatch.setenv('DA4ML_RUN_MODE', 'level')  # the subject is not the mode: no race
     w = _weights(1, (3, 3, 2, 3))
     check((6, 7, 2), lambda m, x: m.conv2d(x, w, strides=strides, padding=padding),
           lambda d: _np_conv2d(d, w, strides, padding))  # fmt: skip
@@ -186,10 +187,11 @@ def config5_model(pkg, backend: str, limited: bool = True, **opts):
 
 
 @pytest.mark.parametrize('backend', ['cpp', 'torch'])
-def test_config5_model_matches_jax(backend):
+def test_config5_model_matches_jax(backend, monkeypatch):
     """The config-5 model at its small size: byte-identical to the JAX
     package's with the native solver, and the device search's trace (plain
     version on the CPU) equal to the JAX package's ``'jax'`` trace."""
+    monkeypatch.setenv('DA4ML_RUN_MODE', 'level')  # the subject is not the mode: no race
     port = config5_model(PACKAGES[0], backend, **({'device': 'cpu'} if backend == 'torch' else {}))
     ref = config5_model(PACKAGES[1], 'jax' if backend == 'torch' else 'cpp')
     assert np.array_equal(port.to_binary(), ref.to_binary())

@@ -208,7 +208,8 @@ def _trace_both(model, backend='cpp', kif=(1, 3, 0)):
 
 
 @pytest.mark.parametrize('name', sorted(MODELS))
-def test_torch_model_trace_and_predict(name):
+def test_torch_model_trace_and_predict(name, monkeypatch):
+    monkeypatch.setenv('DA4ML_RUN_MODE', 'level')  # the subject is not the mode: no race
     model = _model(name)
     port, ref = _trace_both(model)
     assert np.array_equal(port.to_binary(), ref.to_binary()) and port.cost == ref.cost
@@ -276,12 +277,13 @@ def test_plugin_registry_is_the_ports_own():
         tconverter.trace_model(object(), ttrace.HWConfig(1, -1, -1))
 
 
-def test_config5_twin_end_to_end(tmp_path):
+def test_config5_twin_end_to_end(tmp_path, monkeypatch):
     """The small config-5 twin: traced with the native solver and the device
     search (on the CPU), each equal to the reference's trace with the same
     solver ('jax' for the device search); its Verilog project at latency 5
     equal to the reference's; K1's plain version and the netlist simulator
     equal to the module's float64 forward on the input grid."""
+    monkeypatch.setenv('DA4ML_RUN_MODE', 'level')  # the subject is not the mode: no race
     import da4ml_tpu.codegen as jcodegen
 
     from da4ml_tpu_torch.codegen import VerilogModel

@@ -123,10 +123,16 @@ def test_force_i64_takes_a_bool():
     assert DaisExecutor(prog, np.bool_(True), device='cpu').dtype == torch.int64
 
 
-def test_auto_is_level_on_the_cpu():
+def test_auto_is_level_on_the_cpu(monkeypatch):
+    """``'auto'`` on the CPU takes the reference's static answer for a
+    program under ``AUTOTUNE_MIN_OPS``: ``'unroll'``; with the race off,
+    ``'level'`` above ``UNROLL_LIMIT`` (patched down here)."""
     prog = random_program(np.random.default_rng(6), n_ops=60, n_in=4, n_out=3)
     ex = DaisExecutor(prog, device='cpu')
-    assert ex.mode == 'level'
+    assert ex.mode == 'unroll'
+    monkeypatch.setenv('DA4ML_RUN_AUTOTUNE', '0')
+    monkeypatch.setattr(DaisExecutor, 'UNROLL_LIMIT', 50)
+    assert DaisExecutor(prog, device='cpu').mode == 'level'
     data = random_inputs(np.random.default_rng(6), prog, 17)
     np.testing.assert_array_equal(ex(data), reference.run_program(prog, data))
 
@@ -164,6 +170,8 @@ def test_run_mode_env_forces(monkeypatch):
     assert DaisExecutor(prog, mode='unroll', device='cpu').mode == 'unroll'
     # a value that is not a mode leaves 'auto' to its own rule
     monkeypatch.setenv('DA4ML_RUN_MODE', 'fastest')
+    assert DaisExecutor(prog, device='cpu').mode == 'unroll'
+    monkeypatch.setenv('DA4ML_RUN_MODE', ' Level ')
     assert DaisExecutor(prog, device='cpu').mode == 'level'
     monkeypatch.setenv('DA4ML_RUN_MODE', ' Unroll ')
     assert DaisExecutor(prog, device='cpu').mode == 'unroll'
@@ -205,10 +213,10 @@ def test_executor_caches_key_on_the_mode(monkeypatch):
     assert {m: ex.mode for m, ex in by_mode.items()} == {m: m for m in MODES}
     assert all(tb.executor_for_binary(b, mode=m, device='cpu') is ex for m, ex in by_mode.items())
     auto = tb.executor_for_binary(b, device='cpu')
-    assert auto.mode == 'level' and auto is not by_mode['level']
-    monkeypatch.setenv('DA4ML_RUN_MODE', 'unroll')
+    assert auto.mode == 'unroll' and auto is not by_mode['unroll']
+    monkeypatch.setenv('DA4ML_RUN_MODE', 'level')
     forced = tb.executor_for_binary(b, device='cpu')
-    assert forced.mode == 'unroll' and forced is not auto
+    assert forced.mode == 'level' and forced is not auto
     data = random_inputs(rng, prog, 30)
     want = reference.run_program(prog, data)
     for m in MODES:
@@ -241,16 +249,16 @@ def test_the_resolved_mode_is_counted_and_traced(monkeypatch):
         telemetry.add_sink(sink)
         prog = random_program(np.random.default_rng(11), n_ops=60, n_in=4, n_out=3)
         data = random_inputs(np.random.default_rng(11), prog, 8)
-        for mode in ('unroll', 'scan', 'auto'):
+        for mode in ('level', 'scan', 'auto'):
             DaisExecutor(prog, mode=mode, device='cpu')(data)
         snap = telemetry.metrics_snapshot()
     finally:
         telemetry.reset()
-    assert {m: snap[f'run.mode.{m}']['value'] for m in ('unroll', 'scan', 'level')} == dict.fromkeys(
-        ('unroll', 'scan', 'level'), 1.0
+    assert {m: snap[f'run.mode.{m}']['value'] for m in ('level', 'scan', 'unroll')} == dict.fromkeys(
+        ('level', 'scan', 'unroll'), 1.0
     )
     calls = [e for e in sink.events if e.get('name') == 'run.call']
-    assert [e['args']['mode'] for e in calls] == ['unroll', 'scan', 'level']
+    assert [e['args']['mode'] for e in calls] == ['level', 'scan', 'unroll']
 
 
 def test_scan_is_table_driven_over_device_columns():
@@ -274,7 +282,7 @@ def test_scan_is_table_driven_over_device_columns():
 def test_pipeline_stages_keep_the_default_mode():
     stages = [random_program(np.random.default_rng(13), n_ops=40, n_in=4, n_out=3)]
     pipe = tb.PipelineExecutor(stages, device='cpu')
-    assert [s.mode for s in pipe.stages] == ['level']
+    assert [s.mode for s in pipe.stages] == ['unroll']
 
 
 def test_conformance_runs_every_mode_and_skips_unroll_past_its_limit(monkeypatch):

@@ -315,7 +315,7 @@ _LONG_FIELD_CASES = ('65537 inputs', 'over 65535 slots')
 
 @pytest.fixture(scope='module')
 def long_field_executors():
-    return {case: DaisExecutor(_long_field_program(case), device='cpu') for case in _LONG_FIELD_CASES}
+    return {case: DaisExecutor(_long_field_program(case), mode='level', device='cpu') for case in _LONG_FIELD_CASES}
 
 
 def test_cpu_executor_takes_long_field_program_without_records(long_field_executors):
@@ -326,7 +326,7 @@ def test_cpu_executor_takes_long_field_program_without_records(long_field_execut
     before = cuda_backend.launches
     np.testing.assert_array_equal(ex(data), reference.run_program(ex.prog, data))
     assert cuda_backend.launches == before
-    fresh = DaisExecutor(ex.prog, device='cpu')
+    fresh = DaisExecutor(ex.prog, mode='level', device='cpu')
     fresh(data)
     assert 'data' not in vars(fresh.kernel), 'a CPU executor packed the kernel records'
 
@@ -359,10 +359,10 @@ def test_narrow_programs_keep_16_bit_fields():
     from da4ml_tpu_torch.entry import flagship_comb
 
     comb = flagship_comb(backend='cpp')
-    ex = DaisExecutor(decode(comb.to_binary()), device='cpu')
+    ex = DaisExecutor(decode(comb.to_binary()), mode='level', device='cpu')
     assert ex.kernel.data.field_bits == 16 and ex.kernel.record_bytes == 16 and not ex.kernel.data.pool['hi'].any()
     big = DaisExecutor(_port(random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6, n_levels=3,
-                                            wide=True)), device='cpu')  # fmt: skip
+                                            wide=True)), mode='level', device='cpu')  # fmt: skip
     assert big.kernel.data.slot_unit == 1 and big.kernel.data.field_bits == 16
 
 
@@ -574,11 +574,13 @@ def test_smoke_corpus_reaches_both_buffer_paths():
     geometry sends to the global-memory scratch."""
     from da4ml_tpu_torch.ir.synth import random_program as port_random_program
 
-    big = DaisExecutor(port_random_program(np.random.default_rng(1), n_ops=1500, n_in=8, n_out=6, n_levels=5), device='cpu')
+    big = DaisExecutor(port_random_program(np.random.default_rng(1), n_ops=1500, n_in=8, n_out=6, n_levels=5), mode='level',
+                       device='cpu')  # fmt: skip
     g = cuda_backend.launch_geometry(big.kernel.data.n_slots, big.kernel.itemsize, big.kernel.phase_widths, _H100_SMEM)
     assert big.dtype == torch.int32 and g.scratch_rows is None and g.smem > 48 * 1024
     wide = DaisExecutor(
-        port_random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6, n_levels=3, wide=True), device='cpu'
+        port_random_program(np.random.default_rng(1), n_ops=3200, n_in=8, n_out=6, n_levels=3, wide=True), mode='level',
+        device='cpu',
     )
     assert wide.dtype == torch.int64
     g = cuda_backend.launch_geometry(wide.kernel.data.n_slots, wide.kernel.itemsize, wide.kernel.phase_widths, _H100_SMEM)

@@ -510,7 +510,7 @@ def test_slice_on_the_cpu_emits_the_reference_spans_and_families(tmp_path, monke
     (tmp_path / 'p').mkdir()
     (tmp_path / 'r').mkdir()
     comb, y, te, tm = _slice_run(telemetry, ttr, decode, DaisExecutor, VerilogModel, {'backend': 'torch', 'device': 'cpu'},
-                                 {'device': 'cpu'}, tmp_path / 'p')  # fmt: skip
+                                 {'device': 'cpu', 'mode': 'level'}, tmp_path / 'p')  # fmt: skip
     jcomb, jy, je, jm = _slice_run(jtel, jtr, jdecode, JExecutor, JVerilog, {'backend': 'jax'}, {'mode': 'level'},
                                    tmp_path / 'r')  # fmt: skip
     assert np.array_equal(comb.to_binary(), jcomb.to_binary()) and np.array_equal(y, jy)

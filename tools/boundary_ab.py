@@ -21,14 +21,16 @@ kernel; one chunk is one ``.to(device)`` and one ``.cpu()``.
 Workloads: the flagship (2^20 samples), ``bench.py``'s pipeline model
 (262144; its stages chained and its fused program), the fusion workloads
 (2^16; chained and fused), the 256x256 conv front end (2048) and the
-config-5 model (2^20). Prints one line per workload with each rule's
-median, least and most seconds and K1 launches.
+config-5 model (2^20), every executor K1 (``DA4ML_RUN_MODE=pallas``). Prints
+one line per workload with each rule's median, least and most seconds and K1
+launches.
 
 Usage: ``python3 tools/boundary_ab.py`` from the repository root.
 """
 
 from __future__ import annotations
 
+import os
 import statistics
 import subprocess
 import sys
@@ -92,6 +94,10 @@ def main() -> int:
         return 2
     import chip_smoke as cs
     from da4ml_tpu_torch.entry import flagship_comb
+
+    # K1 is the subject: every executor built here, pipeline stages and the
+    # fused program included, takes mode='pallas' for 'auto'
+    os.environ.update(cs.PINNED_ENV)
     from da4ml_tpu_torch.ir.dais_binary import decode
     from da4ml_tpu_torch.runtime import cuda_backend
     from da4ml_tpu_torch.runtime import torch_backend as tb
@@ -105,7 +111,7 @@ def main() -> int:
     DATA = {}
     prog = decode(flagship_comb(backend='cpp').to_binary())
     DATA['flagship'] = np.random.default_rng(20260729).uniform(-8, 8, (1 << 20, prog.n_in))
-    run('flagship', tb.DaisExecutor(prog))
+    run('flagship', tb.DaisExecutor(prog, mode='pallas'))
     pipes = {'pipeline model': cs.pipeline_model()}
     rng = np.random.default_rng(20261019)
     for name, p in cs.fusion_workloads(backend='cpp').items():
@@ -118,11 +124,11 @@ def main() -> int:
         run(f"{name}, fused='ir'", tb.fused_executor_for_binaries(bins))
     wprog = decode(cs.wide_conv_front_end().to_binary())
     DATA['wide conv'] = np.random.default_rng(20261020).uniform(-8, 8, (2048, wprog.n_in))
-    run('wide conv', tb.DaisExecutor(wprog))
+    run('wide conv', tb.DaisExecutor(wprog, mode='pallas'))
     del DATA['wide conv']
     cprog = decode(cs.config5_model('cpp').to_binary())
     DATA['config 5'] = np.random.default_rng(20261018).uniform(-8, 8, (1 << 20, cprog.n_in))
-    run('config 5', tb.DaisExecutor(cprog))
+    run('config 5', tb.DaisExecutor(cprog, mode='pallas'))
     print(card, flush=True)
     return 0
 

@@ -174,7 +174,7 @@ def main() -> int:
     rng, corpus = shared_corpus()
     name, prog = corpus[0]
     data = [random_inputs(rng, prog, b) for b in CORPUS_BATCHES][-1]
-    ex = DaisExecutor(prog, device='cuda')
+    ex = DaisExecutor(prog, mode='pallas', device='cuda')
     x = ex.int_inputs(data)
     y_plain = ex.plain(x)
     tally = Tally()
@@ -191,7 +191,7 @@ def main() -> int:
     rng = np.random.default_rng(CORPUS_SEED + 1)
     t0 = time.perf_counter()
     for name, prog in corpus:
-        ex = DaisExecutor(prog, device='cuda')
+        ex = DaisExecutor(prog, mode='pallas', device='cuda')
         for batch in CORPUS_BATCHES:
             data = random_inputs(rng, prog, batch)
             x = ex.int_inputs(data)
@@ -205,7 +205,7 @@ def main() -> int:
     # 3. the flagship at 2^20 samples
     prog = decode(flagship_comb(backend='cpp').to_binary())
     data = np.random.default_rng(20260729).uniform(-8, 8, (FLAGSHIP_SAMPLES, prog.n_in))
-    ex = DaisExecutor(prog, device='cuda')
+    ex = DaisExecutor(prog, mode='pallas', device='cuda')
     x = ex.int_inputs(data)
     y = ex.kernel.launch(x)
     assert torch.equal(y, ex.plain(x)), 'flagship: K1 differs from its plain version'
@@ -224,7 +224,7 @@ def main() -> int:
         for label, comb, n in (('config 5', chip_smoke.config5_model('cpp'), 1 << 20),
                                ('wide conv', chip_smoke.wide_conv_front_end(), 2048)):  # fmt: skip
             prog = decode(comb.to_binary())
-            ex = DaisExecutor(prog, device='cuda')
+            ex = DaisExecutor(prog, mode='pallas', device='cuda')
             x = ex.int_inputs(np.random.default_rng(20261018).uniform(-8, 8, (n, prog.n_in)))
             result['scratch'][label] = scratch_scan(torch, ex, x, label, card)
     print(json.dumps(result))
