@@ -36,7 +36,8 @@ on them against its plain PyTorch version:
    itself), the host side must go through the native library (its
    ``decompose_batch`` and ``emit_batch`` calls counted), and the program
    must be byte-identical to the host-solved one; a second run of the same
-   search times the rung calls by stage (upload, K2, fetch) and the host
+   search, emission in series, times the rung calls by stage (the resident
+   ladder's transition, upload, K2, fetch) and the host
    side by stage (tracing, decomposition, emission), and a third does the
    same with the Python host side (``has_emit`` patched off);
 5. flagship execution (K1's main path): 2^20 numpy-seeded samples through
@@ -172,6 +173,7 @@ on them against its plain PyTorch version:
    calls on ``FLAGSHIP_SAMPLES`` samples, K1, held to the reference
    interpreter), every K1 and K2 kernel event of its ``torch.profiler`` trace inside
    its ``da4ml:run.call`` / ``da4ml:cmvm.rung`` range, and the busy shares
+   (K2's on the resident ladder, the default)
    (kernel time over the enclosing span's wall time); the flagship call
    timed with telemetry off, ``enable()`` and ``enable(path)``, held to the
    reference interpreter; the live endpoint (``telemetry.serve()`` on an
@@ -215,7 +217,23 @@ on them against its plain PyTorch version:
    a child process (``chip_smoke.py --auto-child FILE``) answered from the
    same decisions with no race. It runs beside the twin's g++ build, after
    phase 17;
-19. the command line, each step ``python -m da4ml_tpu_torch`` in a child
+19. the resident rung ladder (``run_resident``): the device search's
+   default ladder, whose state stays on the card between rungs, against
+   the host-state one (``DA4ML_JAX_DEVICE_RESIDENT=0``), the solve cache
+   bypassed: the flagship at ``'fast'`` solved eight times in turns, each
+   byte-identical to phase 4's program with as many K2 launches; every
+   finished lane's fetched digits held to the host replay
+   (``torch_search._replay_digits``), the replay's seconds beside those of
+   the ladder's own fetches; the flagship at ``'search'`` on both ladders, the
+   wider layers host-state and config 5 twice on each ladder, in turns (for
+   the walls and peak device memory), each equal to phase 15's, 7's and 9's
+   solve with the same K2 launches; a flagship solve whose ``DEVICE_BUDGET``
+   (``SPILL_BUDGET``) splits later rungs, so that the carry spills to host
+   state. Each solve's wall, K2 launches, uploaded and fetched bytes,
+   resident rungs and emission waits are printed; its K2 launches are
+   comparison launches, outside the kernel table. It runs beside the
+   twin's g++ build, after phase 18;
+20. the command line, each step ``python -m da4ml_tpu_torch`` in a child
    process with its exit code checked: the flagship saved as ``.json`` and
    converted to HLS projects (``vitis``, ``hlslib``, ``oneapi``) equal to
    the JAX package's (``CLI_DIGESTS``), then converted with
@@ -233,7 +251,7 @@ on them against its plain PyTorch version:
    to K2's plain version, K1 on both programs, the emulator the command
    line built held to K1, and the g++ build, emulator and K1 times
    (``cli_flagship``, ``cli_twin``);
-20. checks that neither jax nor da4ml_tpu was imported.
+21. checks that neither jax nor da4ml_tpu was imported.
 
 The run keeps its ``mode='auto'`` decisions in a fresh temporary directory
 (``DA4ML_TORCH_CACHE``, set before anything is built and inherited by every
@@ -256,7 +274,8 @@ and calls and read just after), ``telemetry_overhead`` and
 the executor-modes phase's as ``modes_flagship``, ``modes_corpus``,
 ``modes_config5`` and ``modes_twin``, only the forced ``mode='pallas'`` calls whose outputs are
 checked; the ``mode='auto'`` phase's as ``auto_<program>``: the race's K1
-candidate calls and the full-size call, whichever mode won).
+candidate calls and the full-size call, whichever mode won; the resident
+ladder phase's re-solves are comparison launches, printed and not counted).
 
 Prints the wall time of each phase, the kernel table as one JSON line,
 the card line, and last
@@ -284,6 +303,7 @@ import sys
 import tempfile
 import threading
 import time
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -302,6 +322,13 @@ SMEM_BYTES_PER_S = 132 * 128 * 1.98e9
 FLAGSHIP_SAMPLES = 1 << 20
 #: samples of the flagship run through the vectorized numpy interpreter
 NUMPY_SAMPLES = 1 << 16
+#: the device budget of the resident-ladder phase's spilling solve: the
+#: flagship's first rungs of each group fit it whole, later ones split
+#: (``torch_search._rung_bytes_per_lane``), so the carry spills first
+SPILL_BUDGET = 4 << 20
+#: the ladders' order in the resident-ladder phase's timed solves: each
+#: ladder first and last in turn, so drift favours neither
+LADDER_TURNS = (True, False, False, True)
 #: samples of the flagship run through ``run_binary`` by the OpenMP phase
 OMP_SAMPLES = 1 << 18
 CORPUS_BATCHES = (33, 1000, 131073)
@@ -943,34 +970,37 @@ def timed(seconds: dict, key: str, sync: bool = False):
 
 
 class RungRecorder(Patched):
-    """Records every ``torch_search.cse_rung`` call of a solve (inputs, spec)
-    and counts the calls of ``torch_search.init_cache`` meanwhile (on the card
-    K2 builds the score cache itself). With ``stages``, also times the rung
-    calls by stage on the host clock, each stage ended by a device
-    synchronize: ``upload`` (``rung_inputs``), ``K2``
+    """Records every ``torch_search.cse_rung`` call of a solve (inputs, spec;
+    a tensor input is cloned, since the resident ladder hands K2 device
+    tensors that it updates in place) and counts the calls of
+    ``torch_search.init_cache`` meanwhile (on the card K2 builds the score
+    cache itself). With ``stages``, also times the rung calls by stage on the
+    host clock, each stage ended by a device synchronize: ``transition``
+    (``torch_search._transition``: the resident ladder's gather of the next
+    rung's state on the card), ``upload`` (``rung_inputs``), ``K2``
     (``fused_cse.greedy_loop``: the wrapper's checks and the launch) and
-    ``fetch`` (the five outputs to the host). The stage timers add
-    synchronizes and fetches of their own, so a run with them is not the one
-    whose wall time is reported."""
+    ``fetch`` (the ladder's own fetches: ``_fetch_finished`` on a resident
+    rung, ``_fetch_rung`` on a host-state or chunked one, ``_fetch_carry``
+    on a spill). The stage timers add synchronizes of their own, so a run
+    with them is not the one whose wall time is reported."""
 
     def __init__(self, ts, fused_cse, stages: bool = False):
         self.calls, self.init_cache_calls, self.stages = [], 0, stages
-        self.seconds = dict.fromkeys(('upload', 'K2', 'fetch'), 0.0)
+        self.seconds = dict.fromkeys(('transition', 'upload', 'K2', 'fetch'), 0.0)
         makers = {(ts, 'cse_rung'): self._record, (ts, 'init_cache'): self._count_init_cache}
         if stages:
+            makers[ts, '_transition'] = timed(self.seconds, 'transition', sync=True)
             makers[ts, 'rung_inputs'] = timed(self.seconds, 'upload', sync=True)
             makers[fused_cse, 'greedy_loop'] = timed(self.seconds, 'K2', sync=True)
+            for name in ('_fetch_finished', '_fetch_rung', '_fetch_carry'):
+                makers[ts, name] = timed(self.seconds, 'fetch')
         super().__init__(makers)
 
     def _record(self, real):
-        def cse_rung(E0, qmeta0, lat0, cur0, method, spec, device=None):
-            self.calls.append(((E0, qmeta0, lat0, cur0, method), spec))
-            out = real(E0, qmeta0, lat0, cur0, method, spec, device)
-            if self.stages:
-                t0 = time.perf_counter()
-                out = tuple(t.cpu() for t in out)
-                self.seconds['fetch'] += time.perf_counter() - t0
-            return out
+        def cse_rung(E0, qmeta0, lat0, cur0, method, spec, device=None, copy=True):
+            inputs = tuple(t.clone() if hasattr(t, 'clone') else t for t in (E0, qmeta0, lat0, cur0, method))
+            self.calls.append((inputs, spec))
+            return real(E0, qmeta0, lat0, cur0, method, spec, device, copy)
 
         return cse_rung
 
@@ -1040,7 +1070,7 @@ def rung_work(ts, inputs, rec, cur, spec) -> dict[str, int]:
     """
     import torch
 
-    E0, _, _, cur0, _ = (np.asarray(x) for x in inputs)
+    E0, _, _, cur0, _ = (x.cpu().numpy() if hasattr(x, 'cpu') else np.asarray(x) for x in inputs)
     N, P, O, B = E0.shape
     TB = 2 * B
     work = {'bytes': 2 * (N * P * O * B + 16 * N * P) + 12 * N + 16 * N * spec.n_iters,
@@ -1419,7 +1449,7 @@ def run_config5(torch, ts, fused_cse, native, card: str, ptxas) -> dict:
           f"plain version (max abs err {err}), the first {MODEL_REF_SAMPLES} to the reference interpreter on this "
           f"program and on the 'cpp' one", flush=True)  # fmt: skip
     return {'k1_launches': launches, 'k2_launches': k2_launches, 'k2_err': max(r['max_abs_err'] for r in checked),
-            'cost': float(comb_dev.cost), 'prog': prog, 'ref_y': y[:MODEL_REF_SAMPLES]}  # fmt: skip
+            'cost': float(comb_dev.cost), 'prog': prog, 'ref_y': y[:MODEL_REF_SAMPLES], 'binary': comb_dev.to_binary()}  # fmt: skip
 
 
 def stages_digest(pipe) -> str:
@@ -2635,6 +2665,196 @@ def run_quality(torch, ts, fused_cse, card: str, tmp, config5_cost: float) -> di
 
 
 # ---------------------------------------------------------------------------
+# the resident rung ladder against the host-state one
+# ---------------------------------------------------------------------------
+
+
+@contextmanager
+def environ(**values: str):
+    """``os.environ`` with ``values`` set for the block; restored after."""
+    saved = {k: os.environ.get(k) for k in values}
+    os.environ.update(values)
+    try:
+        yield
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+@contextmanager
+def ladder(resident: bool):
+    """The device search's rung ladder for the block:
+    ``DA4ML_JAX_DEVICE_RESIDENT`` set, and ``entry._FLAGSHIP`` emptied (its
+    key lacks the switch, so a cached program would come back unsolved); both
+    restored after."""
+    from da4ml_tpu_torch import entry
+
+    cached = dict(entry._FLAGSHIP)
+    entry._FLAGSHIP.clear()
+    try:
+        with environ(DA4ML_JAX_DEVICE_RESIDENT='1' if resident else '0'):
+            yield
+    finally:
+        entry._FLAGSHIP.clear()
+        entry._FLAGSHIP.update(cached)
+
+
+@contextmanager
+def ladder_metrics():
+    """The search's metrics on, and empty, for the block; yields a dict that
+    holds the ladder's counters after it: uploaded and fetched bytes, rungs,
+    resident rungs, asynchronous emissions and their summed wait."""
+    from da4ml_tpu_torch.telemetry import metrics as tm
+
+    was = tm.metrics_on()
+    tm.enable_metrics()
+    tm.reset_metrics()
+    counts: dict = {}
+    try:
+        yield counts
+    finally:
+        snap = tm.metrics_snapshot()
+        tm.reset_metrics()
+        if not was:
+            tm.disable_metrics()
+        for k in ('sched.upload_bytes', 'sched.fetch_bytes', 'sched.device_resident_rungs', 'sched.rungs',
+                  'emit.async_batches'):  # fmt: skip
+            counts[k.split('.')[1]] = snap.get(k, {}).get('value', 0)
+        counts['async_wait'] = snap.get('emit.async_wait_s', {}).get('sum', 0.0)
+
+
+def ladder_solve(torch, fused_cse, solve, resident: bool) -> dict:
+    """``solve()`` on one ladder with the search's metrics on: its result,
+    host-clock seconds (ended by a synchronize), K2's launches (its count
+    reset just before, read just after), the device memory its peak took
+    above what was allocated before, and the ladder's counters
+    (:func:`ladder_metrics`)."""
+    with ladder(resident), ladder_metrics() as counts:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fused_cse.reset_counts()
+        t0 = time.perf_counter()
+        out = solve()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = fused_cse.launches
+        peak = torch.cuda.max_memory_allocated() - base
+    return {'out': out, 'wall': wall, 'k2': launches, 'peak_mib': peak / 2**20, **counts}
+
+
+def ladder_line(r: dict) -> str:
+    return (f"{r['wall']:.4f} s, K2 {r['k2']}, rungs {r['rungs']:.0f} ({r['device_resident_rungs']:.0f} resident), "
+            f"uploaded {r['upload_bytes']:.0f} B, fetched {r['fetch_bytes']:.0f} B, emission waited "
+            f"{r['async_wait']:.6f} s over {r['async_batches']:.0f} asynchronous groups")  # fmt: skip
+
+
+def run_resident(torch, ts, fused_cse, card: str, held: dict) -> None:
+    """The resident rung ladder (the default) against the host-state one
+    (``DA4ML_JAX_DEVICE_RESIDENT=0``) on the card, around the solve cache:
+    the flagship at ``'fast'`` solved anew eight times in turns
+    (``LADDER_TURNS`` twice), each byte-identical to phase 4's program with
+    phase 4's K2 launches, and each ladder's median wall; a resident solve with every
+    finished lane's fetched digits held to ``torch_search._replay_digits``
+    (the replay's host seconds beside the ladder's own fetches, which the
+    stage timers' synchronizes separate from K2's); the flagship at
+    ``'search'`` on both ladders and ``bench.py``'s four wider layers
+    host-state, each equal to its resident solve of phases 15 and 7 with the
+    same K2 launches; config 5 (``'torch'``) twice on each ladder, in turns,
+    each equal to phase 9's trace with its K2 launches, for their walls and
+    peak device memory; and the flagship with ``DEVICE_BUDGET`` at
+    ``SPILL_BUDGET``, so that the carry spills to host state before a split
+    rung. Each solve's wall, K2 launches and ladder counters (uploaded and
+    fetched bytes, resident rungs, emission waits) are printed. These solves
+    repeat ones the earlier phases made and checked rung by rung, and only
+    their programs are compared here: their K2 launches are comparison
+    launches, printed by solve and not counted in the kernel table."""
+    from da4ml_tpu_torch.cmvm import solve_torch_many
+    from da4ml_tpu_torch.entry import flagship_comb
+
+    laps = Laps()
+    flag_bin = held['flagship'].to_binary()
+    runs = {True: [], False: []}
+    for resident in LADDER_TURNS * 2:
+        r = ladder_solve(torch, fused_cse, lambda: flagship_comb(backend='torch'), resident)
+        assert np.array_equal(r['out'].to_binary(), flag_bin), f'flagship: the {resident=} ladder differs from phase 4'
+        assert r['k2'] == held['flagship_k2'], f"flagship: K2 launched {r['k2']} times ({resident=})"
+        assert (r['device_resident_rungs'] > 0) == resident, r
+        runs[resident].append(r)
+    for resident in (True, False):
+        for r in runs[resident]:
+            print(f"[{card}] resident ladder, flagship 'fast', {'resident' if resident else 'host-state'}: "
+                  f"{ladder_line(r)}, peak {r['peak_mib']:.2f} MiB above the allocated", flush=True)  # fmt: skip
+    print(f"[{card}] resident ladder, flagship 'fast': median wall resident "
+          f"{statistics.median(r['wall'] for r in runs[True]):.4f} s, host-state "
+          f"{statistics.median(r['wall'] for r in runs[False]):.4f} s (host clock, in turns)", flush=True)  # fmt: skip
+    laps.lap('flagship')
+
+    with ladder(True), ts.record_finished() as finished, RungRecorder(ts, fused_cse, stages=True) as staged:
+        comb = flagship_comb(backend='torch')
+    assert np.array_equal(comb.to_binary(), flag_bin), 'flagship: the staged resident solve differs from phase 4'
+    t0 = time.perf_counter()
+    for E0, rec, n_applied, n_in_max, cur, O, B, E in finished:
+        want = ts._replay_digits(E0, rec, n_applied, n_in_max, cur, O, B)
+        assert np.array_equal(E[:cur], want[:cur]) and not E[cur:].any(), 'a fetched lane differs from its replay'
+    replay_s = time.perf_counter() - t0
+    n_replayed = sum(len(rec) - n_applied for _, rec, n_applied, *_ in finished)
+    stages = ', '.join(f'{k} {v:.4f} s' for k, v in staged.seconds.items())
+    print(f"[{card}] resident ladder, flagship 'fast': {len(finished)} finished lanes' fetched digits equal to the "
+          f"host replay of their {n_replayed} records; replay {replay_s:.4f} s (host clock, {cpu_model()}), the "
+          f"ladder's fetches {staged.seconds['fetch']:.4f} s (each after K2's synchronize); rung stages {stages}",
+          flush=True)  # fmt: skip
+    laps.lap('replay')
+
+    search = {}
+    for resident in (True, False):
+        r = search[resident] = ladder_solve(torch, fused_cse, lambda: flagship_comb(backend='torch', quality='search'),
+                                            resident)  # fmt: skip
+        digest = hashlib.sha256(r['out'].to_binary().astype('<i4').tobytes()).hexdigest()
+        assert digest == QUALITY_DIGESTS['search'], f"flagship at 'search': the {resident=} ladder differs ({digest})"
+        assert np.array_equal(r['out'].to_binary(), held['search'].to_binary())
+        assert r['k2'] == held['search_k2'], f"flagship at 'search': K2 {r['k2']} against {held['search_k2']}"
+        assert (r['device_resident_rungs'] > 0) == resident, r
+        print(f"[{card}] resident ladder, flagship 'search', {'resident' if resident else 'host-state'}: "
+              f"{ladder_line(r)}; byte-identical to phase 15's solve (K2 {held['search_k2']})", flush=True)  # fmt: skip
+    wide = ladder_solve(torch, fused_cse, lambda: solve_torch_many(held['wide_kernels']), False)
+    for s, w in zip(wide['out'], held['wide']):
+        assert same_solution(s, w), 'wider layers: the host-state ladder differs from phase 7'
+    assert wide['k2'] == held['wide_k2'], f"wider layers: K2 {wide['k2']} against {held['wide_k2']}"
+    print(f"[{card}] resident ladder, wider layers, host-state: {ladder_line(wide)}; op for op phase 7's resident "
+          f"solve (K2 {held['wide_k2']})", flush=True)  # fmt: skip
+    laps.lap('search and wider layers')
+
+    c5 = {True: [], False: []}
+    for resident in LADDER_TURNS[::-1]:
+        r = ladder_solve(torch, fused_cse, lambda: config5_model('torch'), resident)
+        c5[resident].append(r)
+        assert np.array_equal(r['out'].to_binary(), held['config5']), f'config 5: the {resident=} trace differs from phase 9'
+        assert r['k2'] == held['config5_k2'], f"config 5: K2 {r['k2']} against {held['config5_k2']} ({resident=})"
+        print(f"[{card}] resident ladder, config 5 ('torch' trace), {'resident' if resident else 'host-state'}: "
+              f"{ladder_line(r)}, peak {r['peak_mib']:.2f} MiB above the allocated; byte-identical to phase 9's trace",
+              flush=True)  # fmt: skip
+    laps.lap('config 5')
+
+    spills = {'n': 0}
+    with Patched({(ts, 'DEVICE_BUDGET'): lambda _: SPILL_BUDGET, (ts, '_fetch_carry'): counted(spills, 'n')}):
+        spill = ladder_solve(torch, fused_cse, lambda: flagship_comb(backend='torch'), True)
+    assert spills['n'] > 0, 'the carry never spilled'
+    assert np.array_equal(spill['out'].to_binary(), flag_bin), 'flagship: the spilling solve differs from phase 4'
+    print(f"[{card}] resident ladder, flagship 'fast' at DEVICE_BUDGET {SPILL_BUDGET} B: {spills['n']} spills of the "
+          f"carry; {ladder_line(spill)}; byte-identical to phase 4", flush=True)  # fmt: skip
+    laps.lap('spill')
+    print(f'resident ladder wall time by step (host clock, {cpu_model()}): {laps.line()}', flush=True)
+    launches = {'flagship': sum(r['k2'] for rs in runs.values() for r in rs),
+                'search': sum(r['k2'] for r in search.values()), 'wide_host_state': wide['k2'],
+                'config5': sum(r['k2'] for rs in c5.values() for r in rs), 'spill': spill['k2']}  # fmt: skip
+    print(f"[{card}] resident ladder: K2's comparison launches (not in the kernel table) {launches}", flush=True)
+
+
+# ---------------------------------------------------------------------------
 # telemetry: the command line's trace, the device profile, the overhead of
 # the instrumentation, the live endpoint
 # ---------------------------------------------------------------------------
@@ -3446,7 +3666,7 @@ def main() -> int:
     assert native.has_solver() and native.has_emit()
     phases.lap('builds')
 
-    # phase 19's twin steps start now, beside the phases before it: the
+    # phase 20's twin steps start now, beside the phases before it: the
     # command line's g++ build of the twin's emulator is the run's longest step
     cli_tmp = tempfile.TemporaryDirectory(prefix='chip_smoke_cli_')
     chain = CliTwinChain(torch, Path(cli_tmp.name))
@@ -3508,7 +3728,8 @@ def main() -> int:
     for label, dev_key, py_host in (('native host side', 'cuda', False), ('Python host side', 'cuda:0', True)):
         clock, clock_s = host_clock(ts, native)
         py = Patched({(native, 'has_emit'): lambda real: (lambda: False)} if py_host else {})
-        with RungRecorder(ts, fused_cse, stages=True) as staged, clock, py:
+        # emission in series, so that the host's stages add up
+        with RungRecorder(ts, fused_cse, stages=True) as staged, clock, py, environ(DA4ML_JAX_ASYNC_EMIT='0'):
             fused_cse.reset_counts()
             t0 = time.perf_counter()
             comb_staged = flagship_comb(backend='torch', device=dev_key)
@@ -3519,7 +3740,8 @@ def main() -> int:
         rung_s = staged.total
         stages = ', '.join(f'{k} {v:.4f} s' for k, v in staged.seconds.items())
         other_s = clock_s['solve'] - rung_s - clock_s['decomposition'] - clock_s['emission']
-        print(f'device search by stage, {label} ({staged_s:.3f} s, the timers synchronizing the device): rung calls '
+        print(f'device search by stage, {label} ({staged_s:.3f} s, the timers synchronizing the device, emission in '
+              f'series): rung calls '
               f'{rung_s:.4f} s ({stages}); host: tracing {staged_s - clock_s["solve"]:.4f} s, decomposition '
               f'{clock_s["decomposition"]:.4f} s, emission {clock_s["emission"]:.4f} s, rung ladder and argmin '
               f'{other_s:.4f} s', flush=True)  # fmt: skip
@@ -3658,14 +3880,24 @@ def main() -> int:
                     modes['ms'], {'flagship': flagship_y, 'config5': model['ref_y'], 'wide_conv': wide_conv['y']})  # fmt: skip
     phases.lap("mode='auto'")
 
-    # phase 19: the command line — convert to HLS projects (K2, K1 against
+    # phase 19: the resident rung ladder against the host-state one — host-
+    # state re-solves of what phases 4, 15, 7 and 9 solved resident, the
+    # fetched digits against the host replay, config 5's memory, the spill
+    held = {'flagship': comb_dev, 'flagship_k2': k2_launches,
+            'search': flagship_comb(backend='torch', device='cuda', quality='search'),
+            'search_k2': quality['k2_paths']['quality_flagship_search'], 'wide_kernels': kernels, 'wide': sols,
+            'wide_k2': len(wide_rungs.calls), 'config5': model['binary'], 'config5_k2': model['k2_launches']}  # fmt: skip
+    run_resident(torch, ts, fused_cse, card, held)
+    phases.lap('resident ladder')
+
+    # phase 20: the command line — convert to HLS projects (K2, K1 against
     # the g++ emulator), verify (conformance in every mode), lint-opcodes
     cli = run_cli(torch, ts, fused_cse, comb_dev, card, Path(cli_tmp.name), chain)
     cli_tmp.cleanup()
     decisions.cleanup()
     phases.lap('cli')
 
-    # phase 20: the port imported nothing of JAX
+    # phase 21: the port imported nothing of JAX
     assert 'jax' not in sys.modules and 'da4ml_tpu' not in sys.modules, 'jax or da4ml_tpu was imported'
 
     k1_paths = {'flagship': dais['launches'], 'config5': model['k1_launches'], 'fusion': fusion['k1_launches'],

@@ -49,6 +49,7 @@ METRICS: dict[str, str] = {
     'search.ties': 'candidate comparisons tied on cost',
     'search.trace_records': 'search-trace records written (DA4ML_SEARCH_TRACE_DIR)',
     'sched.rungs': 'CMVM search rungs scheduled',
+    'sched.device_resident_rungs': 'rungs kept device-resident end to end',
     'sched.bucket_groups': 'same-shape rung groups batched into one dispatch',
     'sched.bucket_lanes': 'lanes packed via shape-bucket batching',
     'sched.dedup_lanes': 'duplicate lanes elided by the scheduler',
@@ -71,6 +72,8 @@ METRICS: dict[str, str] = {
     'run.hbm_bytes': 'estimated device-resident bytes per DAIS inference batch',
     'runtime.samples': 'samples served by the legacy runtime entry point',
     'runtime.run_s': 'wall clock per legacy runtime batch',
+    'emit.async_batches': 'asynchronously emitted device batches',
+    'emit.async_wait_s': 'wait for async emission drains',
     'trace.ops': 'DAIS ops traced into programs',
     'fuse.stages': 'pipeline stages fused',
     'fuse.seam_ops': 'seam ops eliminated by pipeline fusion',

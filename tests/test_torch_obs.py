@@ -444,9 +444,9 @@ def test_profile_annotate_disabled_is_noop():
 def test_profile_armed_writes_a_chrome_trace_with_the_ranges(tmp_path):
     """``DA4ML_PROFILE`` in a child process: a device-search solve and an
     executor call on the CPU produce a ``torch.profiler`` Chrome trace whose
-    ``da4ml:cmvm.rung`` and ``da4ml:run.call`` ranges carry the ids of the
-    telemetry spans they ran in (here the CPU ops K2's and K1's plain
-    versions run)."""
+    ``da4ml:cmvm.rung`` (with its fetch, ``da4ml:cmvm.rung.fetch``) and
+    ``da4ml:run.call`` ranges carry the ids of the telemetry spans they ran
+    in (here the CPU ops K2's and K1's plain versions run)."""
     code = ('import numpy as np, json\n'
             'from da4ml_tpu_torch import telemetry\n'
             'from da4ml_tpu_torch.cmvm import solve\n'
@@ -466,7 +466,7 @@ def test_profile_armed_writes_a_chrome_trace_with_the_ranges(tmp_path):
     events = json.loads(Path(path).read_text())['traceEvents']
     ranges = [e for e in events if str(e.get('name', '')).startswith('da4ml:')]
     names = {e['name'].split('#')[0] for e in ranges}
-    assert names == {'da4ml:cmvm.rung', 'da4ml:run.call'}, names
+    assert names == {'da4ml:cmvm.rung', 'da4ml:cmvm.rung.fetch', 'da4ml:run.call'}, names
     spans, _ = telemetry.load_trace(tmp_path / 'spans.json')
     by_id = {e['args']['span_id']: e['name'] for e in spans if e['ph'] == 'X'}
     for e in ranges:

@@ -466,9 +466,8 @@ def test_traceparent_alike_in_both_packages():
 
 
 #: families the reference emits on this path whose counterparts the port
-#: does not carry yet (ROADMAP.md): the XLA compile classes (``jit.*``) and
-#: the asynchronous emission (``emit.async_*``)
-_LEFT_OUT = ('jit.', 'emit.async_')
+#: does not carry (ROADMAP.md): the XLA compile classes (``jit.*``)
+_LEFT_OUT = ('jit.',)
 
 
 def _slice_run(tel, tr, decode, executor, verilog, solver_options, exkw, out):
